@@ -5,18 +5,27 @@ Phases, each of which fails the run on any error:
   1. the card (nvidia-smi name and power limit), the versions, and the build
      of every ``src/repro_torch/kernels/*/csrc/*.cu`` with nvcc for sm_90a;
   2. each kernel's wrapper at the Table-V serving shape (B = 32 slots,
-     N = 1536 neurons in 6 cores, K = 1024, S = 64, E = 16), held against
-     its plain PyTorch version: bit-exact on integer-valued inputs,
-     allclose(rtol=1e-6, atol=1e-6) on random floats; then timed with CUDA
-     events (median of 60 repeats of 20 calls, after warm-up) beside the
-     plain version, with the kernel's own device time from torch.profiler;
+     N = 1536 neurons in 6 cores, K = 1024, S = 64, E = 16; for
+     ``fabric_deliver`` the default 3x3 fabric's M = 1280 static entries and
+     a ring of D1 = 2 slots), held against its plain PyTorch version:
+     bit-exact on integer-valued inputs, allclose(rtol=1e-6, atol=1e-6) on
+     random floats (atomics and per-type sums add in another order); then
+     timed with CUDA events (median of 60 repeats of 20 calls, after
+     warm-up) beside the plain version, with the kernel's own device time
+     from torch.profiler. ``fabric_deliver`` is also carried over
+     2*(max_delay+1)+1 steps on a geometry with max_delay = 2 and link
+     capacity 2, where the kernel and plain legs must carry equal rings;
   3. the serving path: the offline-Hebbian calibration run, then a pool of
      32 slots serving 64 poker-DVS sessions (seed 7, 16 events per step)
-     once per backend (fused, cuda, reference); the three must agree on
-     every session, reach accuracy >= 0.95, and each kernel must have been
-     launched once per engine step of its backend's run; a small network
-     is held against the dense oracle on the card; one profiled window of
-     serving steps says where the device time goes.
+     once per backend (fused, cuda, reference, and the fabric with its
+     kernel and with ``kernel=False``); the queued backends must agree on
+     every session, the two fabric legs must agree on every session (link
+     drops included), every run must reach accuracy >= 0.95, and each
+     kernel must have been launched once per engine step of its backend's
+     run; a short fabric pool with link capacity 8 holds the kernel leg
+     against the plain one where links drop; a small network is held
+     against the dense oracle on the card; one profiled window of serving
+     steps per kernel backend says where the device time goes.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (the plain stage 2
@@ -41,16 +50,19 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.core.cnn import compile_poker_cnn  # noqa: E402
+from repro_torch.core.dispatch import FabricBackend  # noqa: E402
 from repro_torch.core.event_engine import (  # noqa: E402
     EventEngine,
     dense_reference_step,
     dense_weights_from_tables,
 )
+from repro_torch.core.routing import ChipConstants, Fabric  # noqa: E402
 from repro_torch.core.tags import NetworkSpec, compile_network  # noqa: E402
 from repro_torch.core.two_stage import compact_events  # noqa: E402
 from repro_torch.data.pipeline import DvsStreamConfig, DvsStreamSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cam_match import ops as cam_ops  # noqa: E402
+from repro_torch.kernels.fabric_deliver import ops as fabric_ops  # noqa: E402
 from repro_torch.kernels.fused_deliver import ops as fused_ops  # noqa: E402
 from repro_torch.serve.aer import (  # noqa: E402
     AerServeConfig,
@@ -234,12 +246,120 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
         "shape": f"queue [{POOL},{t.n_neurons}] -> entries [{POOL},{ev_flat.shape[-1]}], "
                  f"ext [{POOL},{nc},{k}] f32",
     }
+    out["fabric_deliver"] = fabric_kernel_entry(dev, t, cam_tag, cam_syn, gen)
+    check_fabric_wrap(dev)
     for v in out.values():
         log(f"{v['name']}: bit-exact on integer inputs; max_abs_err {v['max_abs_err']:.3g} on "
             f"random floats, within allclose(rtol=1e-6, atol=1e-6); "
             f"{v['ms'] * 1e3:.2f} us/call (kernel on the device {v['device_ms']} ms), plain "
             f"{v['plain_ms'] * 1e3:.2f} us, bound {v['bound_ms'] * 1e3:.3f} us ({v['bound_by']})")
     return out
+
+
+def fabric_kernel_entry(dev, t, cam_tag, cam_syn, gen) -> dict:
+    """``fabric_deliver`` at the serving shape: the Table-V network's static
+    entry table on the default 3x3 fabric (M = 1280, D1 = 2), B = 32, 10%
+    of the entries carrying a spike, the ring holding the previous step's
+    late arrivals."""
+    nc, k, cs = t.n_clusters, t.k_tags, t.cluster_size
+    be = FabricBackend()
+    entries = be.build_entries(t.src_tag, t.src_dest, cs, k, device=dev)
+    d1 = be.model_for(nc).max_delay + 1
+    m = entries.dstk.shape[0]
+    if (m, d1) != (1280, 2):
+        raise AssertionError(f"Table-V fabric entries {m} x ring slots {d1}, expected 1280 x 2")
+    w_int = (torch.rand((POOL, m), generator=gen, device=dev) < 0.1).float()
+    w_flt = w_int * torch.rand((POOL, m), generator=gen, device=dev)
+    ring_int = torch.randint(0, 3, (POOL, d1, nc, k), generator=gen, device=dev).float()
+    ring_flt = torch.rand((POOL, d1, nc, k), generator=gen, device=dev)
+    ext_int = torch.randint(0, 3, (POOL, nc, k), generator=gen, device=dev).float() * 8.0
+    ext_flt = torch.rand((POOL, nc, k), generator=gen, device=dev)
+    errs_int, errs_flt = [], []
+    for cursor in range(d1):
+        cur = torch.tensor(cursor, dtype=torch.int32, device=dev)
+        for w, ring, ext, errs in ((w_int, ring_int, ext_int, errs_int),
+                                   (w_flt, ring_flt, ext_flt, errs_flt)):
+            args = (entries.dstk, entries.delay, w, ring, cur, ext, cam_tag, cam_syn, cs, k)
+            drive, new_ring = fabric_ops.fabric_deliver(*args)
+            torch.cuda.synchronize()
+            p_drive, p_ring = fabric_ops.fabric_deliver_ref(*args)
+            errs.append(max(float((drive - p_drive).abs().max()),
+                            float((new_ring - p_ring).abs().max())))
+            if w is w_int and not (torch.equal(drive, p_drive) and torch.equal(new_ring, p_ring)):
+                raise AssertionError(f"fabric_deliver not bit-exact on integer inputs: {errs[-1]}")
+            torch.testing.assert_close(drive, p_drive, rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(new_ring, p_ring, rtol=1e-6, atol=1e-6)
+    cur = torch.tensor(0, dtype=torch.int32, device=dev)
+    args = (entries.dstk, entries.delay, w_flt, ring_flt, cur, ext_flt, cam_tag, cam_syn, cs, k)
+    drive, new_ring = fabric_ops.fabric_deliver(*args)
+    valid_words = int((cam_tag >= 0).sum())
+    n_bytes = _nbytes(entries.dstk, entries.delay, w_flt, ring_flt, cur, ext_flt, cam_tag,
+                      cam_syn, drive, new_ring)
+    # one add per entry carrying weight, per arrival cell (+ ext), per valid CAM word
+    n_ops = int((w_flt != 0).sum()) + POOL * nc * k + POOL * valid_words
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    return {
+        "name": "fabric_deliver",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/fabric_deliver/csrc/fabric_deliver.cu",
+        "replaces": "src/repro/kernels/fabric_deliver/fabric_deliver.py:52",
+        "max_abs_err": max(errs_flt),
+        "max_abs_err_integer_inputs": max(errs_int),
+        "ms": time_ms(lambda: fabric_ops.fabric_deliver(*args)),
+        "plain_ms": time_ms(lambda: fabric_ops.fabric_deliver_ref(*args)),
+        "device_ms": device_ms(lambda: fabric_ops.fabric_deliver(*args), "fabric_deliver_kernel"),
+        "bytes": n_bytes,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes ring update + pop + CAM match
+        "shape": f"entries [{m}] i32 x2, w [{POOL},{m}] f32, ring [{POOL},{d1},{nc},{k}] f32, "
+                 f"ext [{POOL},{nc},{k}] f32, cam [{t.n_neurons},{t.cam_tag.shape[1]}] i32 x2",
+    }
+
+
+def check_fabric_wrap(dev: torch.device) -> None:
+    """The ring step carried over 2*(max_delay+1)+1 steps on a geometry with
+    max_delay = 2 and link capacity 2, kernel against plain: equal rings,
+    drives, cursors and integer stats at every step, links dropping."""
+    rng = np.random.default_rng(SEED)
+    fab = Fabric(grid_x=2, grid_y=1, cores_per_tile=2,
+                 constants=ChipConstants(latency_across_chip_s=2e-3))
+    nc, cs, k = fab.n_cores, 64, 256
+    n = nc * cs
+    src_tag = rng.integers(-1, k, (n, 8)).astype(np.int32)
+    src_dest = rng.integers(0, nc, (n, 8)).astype(np.int32)
+    cam_tag = torch.as_tensor(rng.integers(-1, k, (n, 16)).astype(np.int32), device=dev)
+    cam_syn = torch.as_tensor(rng.integers(0, 4, (n, 16)).astype(np.int32), device=dev)
+    legs = {kernel: FabricBackend(fabric=fab, link_capacity=2, kernel=kernel)
+            for kernel in (True, False)}
+    entries = legs[True].build_entries(src_tag, src_dest, cs, k, device=dev)
+    max_delay = legs[True].model_for(nc).max_delay
+    if max_delay != 2:
+        raise AssertionError(f"wrap geometry has max_delay {max_delay}, expected 2")
+    carry = {kernel: be.init_ring(nc, k, batch=4, device=dev) for kernel, be in legs.items()}
+    steps, link_dropped = 2 * (max_delay + 1) + 1, 0
+    for step in range(steps):
+        spikes = torch.as_tensor((rng.random((4, n)) < 0.3).astype(np.float32), device=dev)
+        ext = torch.as_tensor((rng.integers(0, 3, (4, nc, k)) * 8.0).astype(np.float32), device=dev)
+        outs = {}
+        for kernel, be in legs.items():
+            drive, ring, cur, stats = be.deliver_fabric_ring(
+                spikes, entries, cam_tag, cam_syn, cs, k, *carry[kernel],
+                external_activity=ext, queue_capacity=n // 2)
+            carry[kernel] = (ring, cur)
+            outs[kernel] = (drive, ring, cur, stats)
+        torch.cuda.synchronize()
+        for a, b in zip(outs[True][:3], outs[False][:3]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"fabric_deliver: kernel and plain legs differ at step {step}")
+        for f in ("dropped", "link_dropped", "delivered", "hops"):
+            if not torch.equal(getattr(outs[True][3], f), getattr(outs[False][3], f)):
+                raise AssertionError(f"fabric_deliver: {f} differs at step {step}")
+        link_dropped += int(outs[True][3].link_dropped.sum())
+    if link_dropped == 0:
+        raise AssertionError("wrap geometry dropped no link events")
+    log(f"fabric_deliver: kernel and plain legs carry equal rings over {steps} steps at "
+        f"max_delay {max_delay}, link capacity 2 ({link_dropped} link drops)")
 
 
 # ---------------------------------------------------------------------------
@@ -259,9 +379,28 @@ def _sessions(suits) -> list[DvsSession]:
     ]
 
 
+KERNEL_WRAPPERS = {
+    "cam_match": cam_ops.cam_match,
+    "fused_deliver": fused_ops.fused_deliver,
+    "fabric_deliver": fabric_ops.fabric_deliver,
+}
+# serving legs: (label, backend, fabric_options, the kernel it must launch once per step)
+LEGS = (
+    ("fused", "fused", None, "fused_deliver"),
+    ("cuda", "cuda", None, "cam_match"),
+    ("reference", "reference", None, None),
+    ("fabric", "fabric", {}, "fabric_deliver"),
+    ("fabric_plain", "fabric", {"kernel": False}, None),
+)
+
+
 def _reset_counts() -> None:
-    cam_ops.cam_match.launches = 0
-    fused_ops.fused_deliver.launches = 0
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
 def check_dense_oracle(dev: torch.device) -> None:
@@ -349,6 +488,44 @@ def profile_serving(pool: AerSessionPool, suits) -> dict:
     }
 
 
+def _serve_leg(cc, dev, backend, fabric_options, suits, expect_kernel, pool_size=POOL):
+    """Serve ``suits``' sessions on one leg: warm up, then reset the launch
+    counts, serve, read the counts and check them against one launch of
+    ``expect_kernel`` per engine step (and none of the others)."""
+    engine = build_poker_engine(cc.tables, backend=backend, device=dev,
+                                fabric_options=fabric_options)
+    warm = AerSessionPool(cc, engine, AerServeConfig(pool_size=pool_size))
+    warm.serve(_sessions(suits)[:2])  # first-use allocations and library loads
+    pool = AerSessionPool(cc, engine, AerServeConfig(pool_size=pool_size))
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    results = pool.serve(_sessions(suits))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counts()
+    want = {name: (pool.n_steps if name == expect_kernel else 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"{backend} {fabric_options}: launches {counts}, expected {want}")
+    if not all(torch.isfinite(x).all() for x in (pool.carry[0].v, pool.carry[0].i_syn)):
+        raise AssertionError(f"{backend}: non-finite neuron state after serving")
+    by_id = sorted(results, key=lambda r: r.session_id)
+    lat = np.array([r.latency_steps for r in by_id], dtype=np.float64)
+    return {
+        "results": [(r.session_id, r.prediction, r.decided, r.latency_steps,
+                     r.counts.tolist(), r.dropped, r.link_dropped, r.error) for r in by_id],
+        "accuracy": float(np.mean([r.correct for r in by_id])),
+        "latency_p50_steps": float(np.percentile(lat, 50)),
+        "latency_p99_steps": float(np.percentile(lat, 99)),
+        "sessions_per_s": len(results) / wall,
+        "steps_per_s": pool.n_steps / wall,
+        "engine_steps": pool.n_steps,
+        "link_dropped": sum(r.link_dropped for r in by_id),
+        "wall_s": wall,
+        "launches": counts,
+    }
+
+
 def phase_serving(dev: torch.device) -> dict[str, int]:
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
@@ -360,62 +537,40 @@ def phase_serving(dev: torch.device) -> dict[str, int]:
     suits = rng.integers(0, 4, SESSIONS)
     runs: dict[str, dict] = {}
     launches: dict[str, int] = {}
-    for backend in ("fused", "cuda", "reference"):
-        engine = build_poker_engine(cc.tables, backend=backend, device=dev)
-        warm = AerSessionPool(cc, engine, AerServeConfig(pool_size=POOL))
-        warm.serve(_sessions(suits)[:2])  # first-use allocations and library loads
-        pool = AerSessionPool(cc, engine, AerServeConfig(pool_size=POOL))
-        torch.cuda.synchronize()
-        _reset_counts()
-        t0 = time.perf_counter()
-        results = pool.serve(_sessions(suits))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {"cam_match": cam_ops.cam_match.launches,
-                  "fused_deliver": fused_ops.fused_deliver.launches}
-        want = {"fused": {"cam_match": 0, "fused_deliver": pool.n_steps},
-                "cuda": {"cam_match": pool.n_steps, "fused_deliver": 0},
-                "reference": {"cam_match": 0, "fused_deliver": 0}}[backend]
-        if counts != want:
-            raise AssertionError(f"{backend}: launches {counts}, expected {want}")
-        if backend == "fused":
-            launches["fused_deliver"] = counts["fused_deliver"]
-        elif backend == "cuda":
-            launches["cam_match"] = counts["cam_match"]
-        if not all(torch.isfinite(x).all() for x in (pool.carry[0].v, pool.carry[0].i_syn)):
-            raise AssertionError(f"{backend}: non-finite neuron state after serving")
-        by_id = sorted(results, key=lambda r: r.session_id)
-        lat = np.array([r.latency_steps for r in by_id], dtype=np.float64)
-        acc = float(np.mean([r.correct for r in by_id]))
-        runs[backend] = {
-            "results": [(r.session_id, r.prediction, r.decided, r.latency_steps,
-                         r.counts.tolist(), r.dropped, r.error) for r in by_id],
-            "accuracy": acc,
-            "latency_p50_steps": float(np.percentile(lat, 50)),
-            "latency_p99_steps": float(np.percentile(lat, 99)),
-            "sessions_per_s": len(results) / wall,
-            "steps_per_s": pool.n_steps / wall,
-            "engine_steps": pool.n_steps,
-            "wall_s": wall,
-        }
-        r = runs[backend]
-        log(f"serve[{backend}]: {len(results)} sessions, accuracy {acc:.4f}, latency p50 "
+    for label, backend, options, kernel in LEGS:
+        r = runs[label] = _serve_leg(cc, dev, backend, options, suits, kernel)
+        if kernel is not None:
+            launches[kernel] = r["launches"][kernel]
+        log(f"serve[{label}]: {SESSIONS} sessions, accuracy {r['accuracy']:.4f}, latency p50 "
             f"{r['latency_p50_steps']:.1f} / p99 {r['latency_p99_steps']:.1f} steps, "
             f"{r['sessions_per_s']:.2f} sessions/s, {r['steps_per_s']:.2f} steps/s "
-            f"({pool.n_steps} steps, {wall:.3f} s), launches {counts}")
-        if acc < 0.95:
-            raise AssertionError(f"{backend}: accuracy {acc} < 0.95")
-    base = runs["reference"]["results"]
-    for backend in ("fused", "cuda"):
-        if runs[backend]["results"] != base:
-            raise AssertionError(f"{backend} sessions differ from the reference backend's")
-    log("serve: fused, cuda and reference agree on every session "
-        "(prediction, decided, latency, counts, drops)")
+            f"({r['engine_steps']} steps, {r['wall_s']:.3f} s), link drops {r['link_dropped']}, "
+            f"launches {r['launches']}")
+        if r["accuracy"] < 0.95:
+            raise AssertionError(f"{label}: accuracy {r['accuracy']} < 0.95")
+    for group in (("fused", "cuda", "reference"), ("fabric", "fabric_plain")):
+        for label in group[1:]:
+            if runs[label]["results"] != runs[group[0]]["results"]:
+                raise AssertionError(f"{label} sessions differ from {group[0]}'s")
+    log("serve: fused, cuda and reference agree on every session, and so do the fabric's "
+        "kernel and plain legs (prediction, decided, latency, counts, drops, link drops)")
+    # links that really drop: the fabric legs at link capacity 8 on 32 sessions
+    capped = {
+        kernel: _serve_leg(cc, dev, "fabric", {"link_capacity": 8, "kernel": kernel},
+                           suits[:POOL], "fabric_deliver" if kernel else None)
+        for kernel in (True, False)
+    }
+    if capped[True]["results"] != capped[False]["results"] or capped[True]["link_dropped"] == 0:
+        raise AssertionError("fabric at link capacity 8: kernel and plain legs differ, or no drops")
+    runs["fabric_cap8"] = capped[True]
+    log(f"serve[fabric, link capacity 8]: {POOL} sessions, kernel and plain legs agree, "
+        f"{capped[True]['link_dropped']} link drops, accuracy {capped[True]['accuracy']:.4f}, "
+        f"{capped[True]['engine_steps']} steps")
     check_dense_oracle(dev)
 
     prof = {}
-    for backend in ("fused", "cuda"):
-        engine = build_poker_engine(cc.tables, backend=backend, device=dev)
+    for backend, options in (("fused", None), ("cuda", None), ("fabric", {})):
+        engine = build_poker_engine(cc.tables, backend=backend, device=dev, fabric_options=options)
         prof[backend] = profile_serving(AerSessionPool(cc, engine, AerServeConfig(pool_size=POOL)), suits)
         p = prof[backend]
         host = ", ".join(f"{k} {v:.3f}" for k, v in p["host_ms_per_step"].items())
@@ -439,6 +594,8 @@ def main() -> None:
     phase_card_and_build()
     kernels = phase_kernels(dev)
     launches = phase_serving(dev)
+    if set(launches) != set(kernels):
+        raise AssertionError(f"serving legs launched {sorted(launches)}, kernels {sorted(kernels)}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the serving path")

@@ -12,10 +12,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.neuron import NeuronParams, NeuronState
 from repro_torch.core.tags import RoutingTables
 
-__all__ = ["tables_from_numpy", "params_from_jax", "state_from_numpy"]
+__all__ = ["tables_from_numpy", "params_from_jax", "state_from_numpy", "carry_from_numpy"]
 
 
 def tables_from_numpy(tables) -> RoutingTables:
@@ -41,11 +42,39 @@ def params_from_jax(params) -> NeuronParams:
     )
 
 
-def state_from_numpy(v, w, refrac, i_syn, device: torch.device | str = "cpu") -> NeuronState:
+def state_from_numpy(v, w, refrac, i_syn, device: torch.device | str = "cuda") -> NeuronState:
     """A :class:`NeuronState` from array-likes ``v, w, refrac [..., N]`` and
-    ``i_syn [..., N, 4]`` (float32 on ``device``)."""
+    ``i_syn [..., N, 4]`` (float32 on ``device``: the card unless the caller
+    asks for the CPU)."""
+    device = resolve_device(device)
 
     def t(a):
         return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 
     return NeuronState(v=t(v), w=t(w), refrac=t(refrac), i_syn=t(i_syn))
+
+
+def carry_from_numpy(carry, device: torch.device | str = "cuda") -> tuple:
+    """The port's engine carry from ``repro``'s, through numpy arrays.
+
+    ``carry`` is ``(state, spikes)`` (queued mode), ``(state, spikes,
+    inflight)`` (fabric roll mode) or ``(state, spikes, ring, cursor)``
+    (fabric ring mode); ``state`` has ``v, w, refrac, i_syn``. Floats become
+    float32 tensors on ``device`` (the card unless the caller asks for the
+    CPU) and the ring cursor a 0-dim int32 tensor, so both engines can step
+    on from the same mid-flight state.
+    """
+    state, spikes, *delay_line = carry
+    if len(delay_line) > 2:
+        raise ValueError(f"a carry has 2, 3 or 4 elements, got {len(carry)}")
+    device = resolve_device(device)
+
+    def f32(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+
+    out = [state_from_numpy(state.v, state.w, state.refrac, state.i_syn, device), f32(spikes)]
+    if delay_line:
+        out.append(f32(delay_line[0]))
+    if len(delay_line) == 2:
+        out.append(torch.as_tensor(np.array(delay_line[1], dtype=np.int32), device=device))
+    return tuple(out)

@@ -1,8 +1,8 @@
 """Pluggable dispatch backends for batched event delivery.
 
-Counterpart of ``repro.core.dispatch`` for the queued, non-fabric path. A
-dispatch backend turns ``spikes [..., N]`` plus external tag activity
-``[..., n_clusters, K]`` into per-neuron synaptic drive ``[..., N, 4]``:
+Counterpart of ``repro.core.dispatch``. A dispatch backend turns ``spikes
+[..., N]`` plus external tag activity ``[..., n_clusters, K]`` into
+per-neuron synaptic drive ``[..., N, 4]``:
 
   * ``reference`` — plain PyTorch scatter + indexed gather (the oracle)
   * ``cuda``      — stage 2 on the hand-written ``cam_match`` CUDA kernel
@@ -10,8 +10,12 @@ dispatch backend turns ``spikes [..., N]`` plus external tag activity
   * ``fused``     — stage-1 scatter AND stage-2 CAM match in the
                     hand-written ``fused_deliver`` CUDA kernel; always
                     event-queued
+  * ``fabric``    — latency/bandwidth-aware delivery through the executable
+                    R1/R2/R3 model (DESIGN.md §11): tile binning, per-link
+                    FIFOs, delay lines, Table II-IV stats; its time-wheel
+                    ring step runs the hand-written ``fabric_deliver`` kernel
 
-On CPU tensors the two kernel backends run their kernels' plain versions.
+On CPU tensors the kernel backends run their kernels' plain versions.
 ``queue_capacity`` compacts active spikes into a fixed-capacity AER queue
 before stage 1; ``with_stats=True`` also returns a :class:`DeliveryStats`.
 Backends are selected by name through :func:`get_backend`.
@@ -23,10 +27,13 @@ import dataclasses
 
 import torch
 
+from repro_torch.core import routing
+from repro_torch.core.device import resolve_device
 from repro_torch.core.two_stage import (
     compact_events,
     stage1_route,
     stage1_route_events,
+    stage1_route_events_fabric,
     stage2_cam_match,
 )
 from repro_torch.kernels.cam_match import ops as cam_ops
@@ -38,6 +45,8 @@ __all__ = [
     "ReferenceBackend",
     "CudaBackend",
     "FusedBackend",
+    "FabricBackend",
+    "advance_inflight",
     "register_backend",
     "get_backend",
     "available_backends",
@@ -48,12 +57,23 @@ _REGISTRY: dict[str, type] = {}
 
 @dataclasses.dataclass(frozen=True)
 class DeliveryStats:
-    """Per-stream delivery statistics: ``dropped [...]`` int32 counts events
-    lost to AER-queue overflow this step (0 everywhere on the dense path).
-    The fabric counters of ``repro``'s ``DeliveryStats`` come with the
-    fabric slice."""
+    """Per-stream delivery statistics.
+
+    ``dropped [...]`` int32 counts events lost to AER-queue overflow this
+    step (0 everywhere on the dense path). The remaining fields are filled
+    only by the fabric backend and stay ``None`` elsewhere:
+    ``link_dropped`` counts events lost to inter-tile link-FIFO overflow,
+    ``delivered`` counts routed events, and ``hops`` / ``latency_s`` /
+    ``energy_j`` are per-step sums of the Table II-IV per-event figures
+    over delivered events.
+    """
 
     dropped: torch.Tensor
+    link_dropped: torch.Tensor | None = None
+    delivered: torch.Tensor | None = None
+    hops: torch.Tensor | None = None
+    latency_s: torch.Tensor | None = None
+    energy_j: torch.Tensor | None = None
 
 
 def register_backend(name: str):
@@ -212,4 +232,254 @@ class FusedBackend(DispatchBackend):
         )
         if with_stats:
             return drive, DeliveryStats(dropped=queue.dropped)
+        return drive
+
+
+def advance_inflight(buffer, inflight, max_delay: int):
+    """Advance the fabric delay line one step: ``(activity_now, new_inflight)``.
+
+    ``buffer [..., max_delay + 1, nc, K]`` is this step's routed scatter
+    (slot 0 = arriving now); ``inflight [..., max_delay, nc, K]`` is the
+    carried tail, or ``None`` to collapse every delay slot into the current
+    step (the single-shot statistical mode — returns ``None`` back).
+    """
+    if inflight is None:
+        return buffer.sum(dim=-3), None
+    if max_delay == 0:
+        return buffer[..., 0, :, :], inflight  # inflight is empty [..., 0, nc, K]
+    a = buffer[..., 0, :, :] + inflight[..., 0, :, :]
+    shifted = torch.cat(
+        [inflight[..., 1:, :, :], torch.zeros_like(inflight[..., :1, :, :])], dim=-3
+    )
+    return a, shifted + buffer[..., 1:, :, :]
+
+
+def _lead(batch) -> tuple[int, ...]:
+    return () if batch is None else (batch,) if isinstance(batch, int) else tuple(batch)
+
+
+@register_backend("fabric")
+class FabricBackend(DispatchBackend):
+    """Latency/bandwidth-aware delivery over the R1/R2/R3 fabric (§11).
+
+    Events are compacted into the AER queue, binned by (source, destination)
+    tile pair, pushed through per-link bandwidth FIFOs
+    (``r3_throughput_eps * dt`` events per directed tile pair per step,
+    lowest-source-id-first overflow), and scattered into a delay-indexed
+    activity buffer — cross-tile events arrive
+    ``ceil(mesh_hops * latency_across_chip_s / dt)`` steps later.
+
+    Entry points:
+
+    * :meth:`deliver_fabric_ring`, the default mode of
+      ``EventEngine(fabric=...)`` (DESIGN.md §14): the carried buffer is a
+      time-wheel ring ``[..., max_delay + 1, nc, K]`` indexed by a carried
+      int32 cursor, and delivery runs over a static per-SRAM-entry table
+      (kernels/fabric_deliver). On CUDA tensors the ring update and the
+      CAM match run in the hand-written ``fabric_deliver`` kernel;
+      ``kernel=False`` runs its plain version instead (for holding the
+      kernel against it), and CPU tensors always take the plain version.
+    * :meth:`deliver_fabric` takes and returns the roll-carried in-flight
+      buffer (``[..., max_delay, n_clusters, K]``; ``ring=False``), the
+      parity reference, in plain PyTorch.
+    * :meth:`deliver` (the registry API) models one isolated timestep with
+      every surviving event collapsed into the same step.
+
+    ``tile_of_cluster`` pins the placement (default: hierarchical linear);
+    per-event constants are precomputed once per cluster count
+    (``routing.build_delivery_model``). ``repro``'s TPU knobs ``block_c``
+    and ``interpret`` have no counterpart; ``faults`` must be ``None``
+    (fault injection is not ported yet).
+    """
+
+    def __init__(
+        self,
+        fabric: routing.Fabric | None = None,
+        tile_of_cluster=None,
+        dt: float = 1e-3,
+        vdd: float = 1.3,
+        link_capacity: int | None = None,
+        ring: bool = True,
+        faults=None,
+        per_link_stats: bool = False,
+        kernel: bool = True,
+    ):
+        if faults is not None:
+            raise NotImplementedError(
+                "fault injection (FaultSpec) is not ported yet; it comes with "
+                "the faults slice of the port (ROADMAP queue 1 item 9)"
+            )
+        self.fabric = fabric if fabric is not None else routing.Fabric()
+        self.tile_of_cluster = tile_of_cluster
+        self.dt = float(dt)
+        self.vdd = vdd
+        self.link_capacity = link_capacity
+        self.ring = bool(ring)
+        self.per_link_stats = bool(per_link_stats)
+        self.kernel = bool(kernel)
+        self._models: dict[int, routing.FabricDeliveryModel] = {}
+        self._arrays: dict[tuple[int, torch.device], dict[str, torch.Tensor]] = {}
+
+    def model_for(self, n_clusters: int) -> routing.FabricDeliveryModel:
+        """The (cached) :class:`~repro_torch.core.routing.FabricDeliveryModel`
+        for a cluster count."""
+        model = self._models.get(n_clusters)
+        if model is None:
+            model = routing.build_delivery_model(
+                self.fabric, n_clusters, self.dt, tile_of_cluster=self.tile_of_cluster,
+                vdd=self.vdd, link_capacity=self.link_capacity,
+            )
+            self._models[n_clusters] = model
+        return model
+
+    def arrays_for(self, n_clusters: int, device: torch.device) -> dict[str, torch.Tensor]:
+        """The model's per-cluster-pair matrices as tensors on ``device``."""
+        key = (n_clusters, torch.device(device))
+        arrays = self._arrays.get(key)
+        if arrays is None:
+            model = self.model_for(n_clusters)
+            arrays = {
+                name: torch.as_tensor(getattr(model, attr), device=device)
+                for name, attr in (
+                    ("cluster_tile", "tile_of_cluster"), ("delay_steps", "delay_steps"),
+                    ("mesh_hops", "mesh_hops"), ("latency_s", "latency_s"),
+                    ("energy_j", "energy_j"),
+                )
+            }
+            self._arrays[key] = arrays
+        return arrays
+
+    def init_inflight(
+        self, n_clusters: int, k_tags: int, batch=None, dtype=torch.float32,
+        device: torch.device | str = "cuda",
+    ) -> torch.Tensor:
+        """Zero in-flight buffer ``[..., max_delay, n_clusters, K]``."""
+        model = self.model_for(n_clusters)
+        return torch.zeros((*_lead(batch), model.max_delay, n_clusters, k_tags),
+                           dtype=dtype, device=resolve_device(device))
+
+    def init_ring(
+        self, n_clusters: int, k_tags: int, batch=None, dtype=torch.float32,
+        device: torch.device | str = "cuda",
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Zero time-wheel ring ``[..., max_delay + 1, nc, K]`` + cursor 0.
+
+        The cursor is one 0-dim int32 tensor on the device, shared by every
+        batch slot (they step in lockstep); the kernel reads it through a
+        pointer, so stepping never syncs the host.
+        """
+        model = self.model_for(n_clusters)
+        dev = resolve_device(device)
+        ring = torch.zeros((*_lead(batch), model.max_delay + 1, n_clusters, k_tags),
+                           dtype=dtype, device=dev)
+        return ring, torch.zeros((), dtype=torch.int32, device=dev)
+
+    def build_entries(self, src_tag, src_dest, cluster_size: int, k_tags: int,
+                      device: torch.device | str = "cuda"):
+        """Static per-SRAM-entry table for the ring path (host-side, once per
+        engine); see kernels/fabric_deliver/ops.py."""
+        from repro_torch.kernels.fabric_deliver import ops as fabric_ops
+
+        n_clusters = src_tag.shape[0] // cluster_size
+        return fabric_ops.build_fabric_entries(
+            src_tag, src_dest, cluster_size, k_tags, self.model_for(n_clusters),
+            device=device,
+        )
+
+    def deliver_fabric_ring(
+        self,
+        spikes,
+        entries,  # FabricEntries from build_entries
+        cam_tag,
+        cam_syn,
+        cluster_size,
+        k_tags,
+        ring,  # [..., max_delay + 1, nc, K]
+        cursor,  # 0-dim int32 tensor
+        external_activity=None,
+        queue_capacity=None,
+        syn_onehot=None,
+    ):
+        """Ring fabric step: ``(drive, ring, cursor, DeliveryStats)``."""
+        from repro_torch.kernels.fabric_deliver import ops as fabric_ops
+
+        model = self.model_for(spikes.shape[-1] // cluster_size)
+        return fabric_ops.fabric_deliver_ring(
+            spikes, entries, cam_tag, cam_syn, cluster_size, k_tags, ring, cursor,
+            max_delay=model.max_delay, link_capacity=model.link_capacity,
+            queue_capacity=queue_capacity, external_activity=external_activity,
+            syn_onehot=syn_onehot, per_link_stats=self.per_link_stats,
+            n_tiles=model.n_tiles, kernel=self.kernel,
+        )
+
+    def cam_match(self, activity, cam_tag, cam_syn, cluster_size, syn_onehot=None):
+        return stage2_cam_match(activity, cam_tag, cam_syn, cluster_size, syn_onehot)
+
+    def deliver_fabric(
+        self,
+        spikes,
+        src_tag,
+        src_dest,
+        cam_tag,
+        cam_syn,
+        cluster_size,
+        k_tags,
+        inflight=None,  # [..., max_delay, n_clusters, K] or None (collapse delays)
+        external_activity=None,
+        queue_capacity=None,
+        syn_onehot=None,
+    ):
+        """Roll fabric step: ``(drive, new_inflight, DeliveryStats)``.
+
+        ``new_inflight`` is ``None`` when ``inflight`` was ``None`` (the
+        collapsed single-shot mode used by :meth:`deliver`).
+        """
+        n = spikes.shape[-1]
+        n_clusters = n // cluster_size
+        model = self.model_for(n_clusters)
+        arrs = self.arrays_for(n_clusters, spikes.device)
+        capacity = n if queue_capacity is None else queue_capacity
+        queue = compact_events(spikes, capacity)
+        route = stage1_route_events_fabric(
+            queue, src_tag, src_dest, n_clusters, k_tags, cluster_size,
+            arrs["cluster_tile"], arrs["delay_steps"], model.n_tiles, model.max_delay,
+            model.link_capacity, mesh_hops=arrs["mesh_hops"],
+            latency_s=arrs["latency_s"], energy_j=arrs["energy_j"],
+            per_link_stats=self.per_link_stats,
+        )
+        a, new_inflight = advance_inflight(route.buffer, inflight, model.max_delay)
+        if external_activity is not None:
+            a = a + external_activity
+        drive = stage2_cam_match(a, cam_tag, cam_syn, cluster_size, syn_onehot)
+        stats = DeliveryStats(
+            dropped=queue.dropped,
+            link_dropped=route.link_dropped,
+            delivered=route.delivered,
+            hops=route.hops,
+            latency_s=route.latency_s,
+            energy_j=route.energy_j,
+        )
+        return drive, new_inflight, stats
+
+    def deliver(
+        self,
+        spikes,
+        src_tag,
+        src_dest,
+        cam_tag,
+        cam_syn,
+        cluster_size,
+        k_tags,
+        external_activity=None,
+        queue_capacity=None,
+        syn_onehot=None,
+        with_stats=False,
+    ):
+        drive, _, stats = self.deliver_fabric(
+            spikes, src_tag, src_dest, cam_tag, cam_syn, cluster_size, k_tags,
+            inflight=None, external_activity=external_activity,
+            queue_capacity=queue_capacity, syn_onehot=syn_onehot,
+        )
+        if with_stats:
+            return drive, stats
         return drive

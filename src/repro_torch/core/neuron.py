@@ -12,6 +12,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.core.two_stage import N_SYN_TYPES
 
 __all__ = ["NeuronParams", "NeuronState", "init_state", "neuron_step"]
@@ -52,11 +53,12 @@ def init_state(
     params: NeuronParams,
     dtype: torch.dtype = torch.float32,
     batch: int | tuple[int, ...] | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> NeuronState:
-    """Fresh state for ``n`` neurons; ``batch`` prepends leading batch dims."""
+    """Fresh state for ``n`` neurons on ``device`` (the card unless the caller
+    asks for the CPU); ``batch`` prepends leading batch dims."""
     lead = () if batch is None else (batch,) if isinstance(batch, int) else tuple(batch)
-    kw = {"dtype": dtype, "device": device}
+    kw = {"dtype": dtype, "device": resolve_device(device)}
     return NeuronState(
         v=torch.full((*lead, n), params.v_rest, **kw),
         w=torch.zeros((*lead, n), **kw),

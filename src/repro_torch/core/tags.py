@@ -32,6 +32,8 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
+from repro_torch.core.routing import Fabric, validate_placement
+
 __all__ = [
     "SynapseType",
     "NetworkSpec",
@@ -241,21 +243,23 @@ def _allocate_unit_tags(spec: NetworkSpec, units: list[AllocUnit], allocator: st
 
 def compile_network(
     spec: NetworkSpec,
-    fabric=None,
+    fabric: Fabric | None = None,
     tile_of_cluster: np.ndarray | Sequence[int] | None = None,
     allocator: str = "greedy",
 ) -> RoutingTables:
     """Tag allocation + table materialization (paper Appendix A), greedy v1.
 
-    A placement (``fabric`` / ``tile_of_cluster``) needs the fabric model,
-    which comes with the fabric slice of the port, and raises
-    ``NotImplementedError`` here.
+    With ``fabric`` (a :class:`~repro_torch.core.routing.Fabric`) set the
+    tables additionally carry a cluster->tile placement
+    (``tile_of_cluster``, validated against the fabric geometry; default:
+    hierarchical linear placement) so the fabric-mode event engine can
+    derive per-event mesh hops, delays, and link assignments.
     """
-    if fabric is not None or tile_of_cluster is not None:
-        raise NotImplementedError(
-            "compiling a placement needs routing.validate_placement, which "
-            "comes with the fabric slice of the port"
-        )
+    placement = None
+    if tile_of_cluster is not None and fabric is None:
+        raise ValueError("tile_of_cluster requires a fabric to validate against")
+    if fabric is not None:
+        placement = validate_placement(fabric, spec.n_clusters, tile_of_cluster)
     n = spec.n_neurons
     units = expand_units(spec)
     unit_tags = _allocate_unit_tags(spec, units, allocator)
@@ -317,4 +321,5 @@ def compile_network(
         cam_syn=cam_syn,
         cluster_size=spec.cluster_size,
         k_tags=spec.k_tags,
+        tile_of_cluster=placement,
     )

@@ -1,9 +1,12 @@
-"""Continuous-batching AER serving: a DVS session pool (single model, queued mode).
+"""Continuous-batching AER serving: a DVS session pool (single model).
 
-Counterpart of ``repro.serve.aer`` for one resident Table-V model:
+Counterpart of ``repro.serve.aer`` for one resident Table-V model, in queued
+mode or over the executable fabric (``build_poker_engine(tables,
+"fabric")``):
 
   * a **fixed-slot pool**: the engine carry is batched to ``pool_size``
-    once; every slot is one tenant's neuron state and previous-step spikes;
+    once; every slot is one tenant's neuron state, previous-step spikes and,
+    in fabric mode, its slice of the delay-line ring;
   * one batched engine step drives all slots (vacancy is zero input on
     fresh state, not a smaller shape);
   * **independent admit/evict**: a departing tenant's slot is wiped with
@@ -30,6 +33,7 @@ from repro_torch.core.cnn import (
     poker_neuron_params,
 )
 from repro_torch.core.event_engine import EventEngine
+from repro_torch.core.routing import Fabric
 from repro_torch.core.tags import RoutingTables
 from repro_torch.data.pipeline import DvsStreamSource, symbol_dvs_events
 
@@ -55,21 +59,33 @@ class SlotError(ValueError):
 
 
 def build_poker_engine(
-    tables, backend: str = "reference", device: torch.device | str = "cuda"
+    tables,
+    backend: str = "reference",
+    device: torch.device | str = "cuda",
+    fabric_options: dict | None = None,
 ) -> EventEngine:
     """Event engine at the §V serving operating point for a dispatch backend.
 
-    ``backend`` is a registry name (``reference`` / ``cuda`` / ``fused``).
-    The AER queue is sized lossless for this workload (``queue_capacity =
-    N``), so the ``reference`` and ``cuda`` backends take the dense stage-1
-    path and ``fused`` queues every active source.
+    ``backend`` is a registry name (``reference`` / ``cuda`` / ``fused``) or
+    ``"fabric"`` for executable-mesh delivery on the default 3x3-chip board
+    geometry, configured by ``fabric_options`` (``FabricBackend`` keywords,
+    e.g. ``link_capacity``, ``ring`` or ``kernel``). The AER queue is sized
+    lossless for this workload (``queue_capacity = N``), so the
+    ``reference`` and ``cuda`` backends take the dense stage-1 path and
+    ``fused`` queues every active source.
     """
     if not isinstance(tables, RoutingTables) and hasattr(tables, "tables"):
         tables = tables.tables
-    return EventEngine(
-        tables, poker_neuron_params(), backend=backend,
-        queue_capacity=tables.n_neurons, device=device,
-    )
+    params = poker_neuron_params()
+    q_cap = tables.n_neurons
+    if backend == "fabric":
+        return EventEngine(
+            tables, params, queue_capacity=q_cap, device=device, fabric=Fabric(),
+            fabric_options=dict(fabric_options or {}),
+        )
+    if fabric_options is not None:
+        raise ValueError(f"fabric_options need the fabric backend, got {backend!r}")
+    return EventEngine(tables, params, backend=backend, queue_capacity=q_cap, device=device)
 
 
 def tune_poker_readout(device: torch.device | str, rng: np.random.Generator) -> np.ndarray:
@@ -118,6 +134,7 @@ class DvsSession:
     step: int = 0  # steps since admission (= the source's cursor)
     counts: np.ndarray | None = None  # [n_classes] cumulative output spikes
     dropped: int = 0  # cumulative AER-queue drops
+    link_dropped: int = 0  # cumulative fabric link-FIFO drops
     error: str | None = None  # input fault: the session failed, not the pool
 
 
@@ -134,6 +151,7 @@ class SessionResult:
     latency_steps: int  # steps from admission to decision
     counts: np.ndarray  # [n_classes] final cumulative output spikes
     dropped: int
+    link_dropped: int
     error: str | None = None  # set when the session was terminated on a fault
 
     @property
@@ -153,9 +171,12 @@ class AerSessionPool:
     """Fixed-slot continuous batching over the batched event engine.
 
     ``engine`` is an :class:`EventEngine` over the compiled CNN's tables
-    built with ``queue_capacity`` (as :func:`build_poker_engine` does). The
-    carry is allocated once at ``pool_size`` on the engine's device and
-    reset per slot on eviction; session bookkeeping stays on the host.
+    built with ``queue_capacity`` or in fabric mode (as
+    :func:`build_poker_engine` does). The carry is allocated once at
+    ``pool_size`` on the engine's device and reset per slot on eviction;
+    session bookkeeping stays on the host. A fabric engine with
+    ``per_link_stats`` is served with its link drops summed per session;
+    ``repro``'s traffic profile of the pool is not ported yet.
     """
 
     def __init__(self, cc: CompiledCnn, engine: EventEngine, cfg: AerServeConfig):
@@ -166,7 +187,7 @@ class AerSessionPool:
                 f"engine serves {engine.n_neurons} neurons, compiled CNN has "
                 f"{cc.tables.n_neurons}"
             )
-        if engine.queue_capacity is None:
+        if engine.queue_capacity is None and engine.fabric_backend is None:
             raise ValueError("the pool reads drop counts: build the engine with queue_capacity")
         self.cc = cc
         self.engine = engine
@@ -198,6 +219,7 @@ class AerSessionPool:
         session.step = 0
         session.counts = np.zeros(self.n_classes, dtype=np.float64)
         session.dropped = 0
+        session.link_dropped = 0
         session.error = None  # a re-admitted session retries with a clean slate
         self.slots[slot] = session
         return slot
@@ -230,6 +252,7 @@ class AerSessionPool:
                     latency_steps=sess.step,
                     counts=sess.counts.copy(),
                     dropped=sess.dropped,
+                    link_dropped=sess.link_dropped,
                     error=sess.error,
                 )
             )
@@ -278,10 +301,15 @@ class AerSessionPool:
         return np.stack(acts)
 
     def finish_step(self, out) -> np.ndarray:
-        """Bring a launched step's spikes and drop counts to the host (one
-        wait on the device) and apply them per session."""
+        """Bring a launched step's spikes, drop counts and (fabric mode) link
+        drop counts to the host in one wait on the device, and apply them
+        per session."""
         spikes_t, stats = out
-        spikes, dropped = _to_host(spikes_t, stats.dropped)
+        link_t = stats.link_dropped
+        if link_t is not None and link_t.ndim > spikes_t.ndim - 1:
+            link_t = link_t.sum(-1)  # per_link_stats: [P, T*T] -> per session
+        to_copy = (spikes_t, stats.dropped) + (() if link_t is None else (link_t,))
+        spikes, dropped, *link = _to_host(*to_copy)
         self.last_stats = stats
         self.n_steps += 1
         o0, o1 = self.cc.out
@@ -291,6 +319,8 @@ class AerSessionPool:
             sess.counts += spikes[i, o0:o1].reshape(self.n_classes, -1).sum(-1)
             sess.step += 1
             sess.dropped += int(dropped[i])
+            if link:
+                sess.link_dropped += int(link[0][i])
         return spikes
 
     def _decision(self, sess: DvsSession) -> tuple[bool, bool]:

@@ -18,9 +18,12 @@ import pytest
 import torch
 
 from repro_torch.core.cnn import compile_poker_cnn
+from repro_torch.core.dispatch import FabricBackend
+from repro_torch.core.routing import ChipConstants, Fabric
 from repro_torch.core.two_stage import compact_events
 from repro_torch.data.pipeline import DvsStreamConfig, DvsStreamSource
 from repro_torch.kernels.cam_match import ops as cam_ops
+from repro_torch.kernels.fabric_deliver import ops as fabric_ops
 from repro_torch.kernels.fused_deliver import ops as fused_ops
 from repro_torch.serve.aer import AerServeConfig, AerSessionPool, DvsSession, build_poker_engine
 
@@ -145,3 +148,136 @@ def test_cuda_pool_backends_agree_and_launch_once_per_step(cuda):
             for r in results
         ]
     assert summaries["cuda"] == summaries["reference"] == summaries["fused"]
+
+
+# ---------------------------------------------------------------------------
+# fabric_deliver: the time-wheel ring step
+# ---------------------------------------------------------------------------
+def _fabric_step_inputs(dev, entries, b, d1, nc, k, integer, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m = entries.dstk.shape[0]
+    if integer:
+        w = (torch.rand((b, m), generator=gen, device=dev) < 0.3).float()
+        ring = torch.randint(0, 4, (b, d1, nc, k), generator=gen, device=dev).float()
+        ext = torch.randint(0, 3, (b, nc, k), generator=gen, device=dev).float() * 8.0
+    else:
+        w = torch.rand((b, m), generator=gen, device=dev)
+        ring = torch.rand((b, d1, nc, k), generator=gen, device=dev)
+        ext = torch.rand((b, nc, k), generator=gen, device=dev)
+    return w, ring, ext
+
+
+@pytest.mark.parametrize("integer", [True, False])
+def test_cuda_fabric_deliver_matches_plain_at_serving_shape(cuda, integer):
+    """B = 32 slots of the Table-V network on its default fabric (M = 1280
+    entries, D1 = 2), at both cursor phases, with and without ext."""
+    cc = compile_poker_cnn()
+    t = cc.tables
+    be = FabricBackend()
+    entries = be.build_entries(t.src_tag, t.src_dest, t.cluster_size, t.k_tags, device=cuda)
+    d1 = be.model_for(t.n_clusters).max_delay + 1
+    assert entries.dstk.shape == (1280,) and d1 == 2
+    cam_tag, cam_syn = (torch.as_tensor(a, device=cuda) for a in (t.cam_tag, t.cam_syn))
+    w, ring, ext = _fabric_step_inputs(cuda, entries, 32, d1, t.n_clusters, t.k_tags, integer, 3)
+    for cursor in range(d1):
+        cur = torch.tensor(cursor, dtype=torch.int32, device=cuda)
+        for e in (ext, None):
+            args = (entries.dstk, entries.delay, w, ring, cur, e, cam_tag, cam_syn,
+                    t.cluster_size, t.k_tags)
+            before = fabric_ops.fabric_deliver.launches
+            drive, new_ring = fabric_ops.fabric_deliver(*args)
+            torch.cuda.synchronize()
+            assert fabric_ops.fabric_deliver.launches == before + 1
+            p_drive, p_ring = fabric_ops.fabric_deliver_ref(*args)
+            assert not new_ring[:, cursor].any()
+            if integer:
+                assert torch.equal(drive, p_drive) and torch.equal(new_ring, p_ring)
+            else:
+                torch.testing.assert_close(drive, p_drive, rtol=1e-6, atol=1e-6)
+                torch.testing.assert_close(new_ring, p_ring, rtol=1e-6, atol=1e-6)
+
+
+def test_cuda_fabric_ring_kernel_matches_plain_over_wrapped_steps(cuda):
+    """max_delay = 2, link capacity 2, a queue shorter than N: the kernel
+    and plain legs carry equal rings, drives and stats over 2*(D1)+1 steps."""
+    rng = np.random.default_rng(5)
+    fab = Fabric(grid_x=2, grid_y=1, cores_per_tile=2,
+                 constants=ChipConstants(latency_across_chip_s=2e-3))
+    nc, cs, k = fab.n_cores, 16, 64
+    n = nc * cs
+    src_tag = rng.integers(-1, k, (n, 4)).astype(np.int32)
+    src_dest = rng.integers(0, nc, (n, 4)).astype(np.int32)
+    cam_tag = torch.as_tensor(rng.integers(-1, k, (n, 8)).astype(np.int32), device=cuda)
+    cam_syn = torch.as_tensor(rng.integers(0, 4, (n, 8)).astype(np.int32), device=cuda)
+    legs = {kernel: FabricBackend(fabric=fab, link_capacity=2, kernel=kernel)
+            for kernel in (True, False)}
+    entries = legs[True].build_entries(src_tag, src_dest, cs, k, device=cuda)
+    d1 = legs[True].model_for(nc).max_delay + 1
+    assert d1 == 3
+    carry = {kernel: be.init_ring(nc, k, batch=3, device=cuda) for kernel, be in legs.items()}
+    before = fabric_ops.fabric_deliver.launches
+    for step in range(2 * d1 + 1):
+        spikes = torch.as_tensor((rng.random((3, n)) < 0.5).astype(np.float32), device=cuda)
+        ext = torch.as_tensor((rng.integers(0, 3, (3, nc, k)) * 8.0).astype(np.float32), device=cuda)
+        outs = {}
+        for kernel, be in legs.items():
+            drive, ring, cur, stats = be.deliver_fabric_ring(
+                spikes, entries, cam_tag, cam_syn, cs, k, *carry[kernel],
+                external_activity=ext, queue_capacity=n // 2)
+            carry[kernel] = (ring, cur)
+            outs[kernel] = (drive, ring, cur, stats)
+        torch.cuda.synchronize()
+        for a, b in zip(outs[True][:3], outs[False][:3]):
+            assert torch.equal(a, b), f"step {step}"
+        for f in ("dropped", "link_dropped", "delivered", "hops"):
+            assert torch.equal(getattr(outs[True][3], f), getattr(outs[False][3], f))
+    assert fabric_ops.fabric_deliver.launches == before + 2 * d1 + 1
+    assert int(outs[True][3].link_dropped.sum()) > 0
+
+
+def test_cuda_fabric_deliver_raises_on_bad_arguments(cuda):
+    m, nc, k, cs = 8, 2, 16, 4
+    dstk = torch.zeros(m, dtype=torch.int32, device=cuda)
+    delay = torch.zeros(m, dtype=torch.int32, device=cuda)
+    w = torch.zeros((1, m), device=cuda)
+    cam = torch.zeros((nc * cs, 4), dtype=torch.int32, device=cuda)
+    cur = torch.tensor(0, dtype=torch.int32, device=cuda)
+    ring = torch.zeros((1, 2, nc, k), device=cuda)
+    with pytest.raises(ValueError, match="cursor"):
+        fabric_ops.fabric_deliver(dstk, delay, w, ring, cur.long(), None, cam, cam, cs, k)
+    with pytest.raises(ValueError, match="ring"):
+        fabric_ops.fabric_deliver(dstk, delay, w, ring[..., :8], cur, None, cam, cam, cs, k)
+    # a ring column larger than a block's shared memory is refused, not run elsewhere
+    big = torch.zeros((1, 60, nc, 1024), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fabric_ops.fabric_deliver(dstk, delay, w, big, cur, None, cam, cam, cs, 1024)
+
+
+def test_cuda_fabric_pool_kernel_and_plain_legs_agree(cuda):
+    """The Table-V pool over the fabric on the card, at the default link
+    capacity and at 8: the kernel leg launches fabric_deliver once per
+    engine step, the plain leg never, and both serve the same sessions."""
+    cc = compile_poker_cnn()
+    for cap in (None, 8):
+        summaries = {}
+        for kernel in (True, False):
+            opts = {"kernel": kernel, **({} if cap is None else {"link_capacity": cap})}
+            pool = AerSessionPool(cc, build_poker_engine(cc.tables, "fabric", device=cuda,
+                                                         fabric_options=opts),
+                                  AerServeConfig(pool_size=4, max_steps=25))
+            sessions = [
+                DvsSession(i, DvsStreamSource(DvsStreamConfig(symbol=i % 4, seed=9), session_id=i),
+                           label=i % 4)
+                for i in range(6)
+            ]
+            before = fabric_ops.fabric_deliver.launches
+            results = pool.serve(sessions)
+            launched = fabric_ops.fabric_deliver.launches - before
+            assert launched == (pool.n_steps if kernel else 0)
+            summaries[kernel] = [
+                (r.session_id, r.prediction, r.decided, r.latency_steps, r.counts.tolist(),
+                 r.dropped, r.link_dropped)
+                for r in results
+            ]
+        assert summaries[True] == summaries[False]
+        assert (sum(r[-1] for r in summaries[True]) > 0) == (cap is not None)

@@ -60,7 +60,7 @@ def _j_deliver(spikes, ext, src_tag, src_dest, cam_tag, cam_syn, cluster_size, k
 # registry
 # ---------------------------------------------------------------------------
 def test_registry():
-    assert set(tdispatch.available_backends()) == {"reference", "cuda", "fused"}
+    assert set(tdispatch.available_backends()) == {"reference", "cuda", "fused", "fabric"}
     with pytest.raises(ValueError, match="unknown dispatch backend"):
         tdispatch.get_backend("pallas")
     inst = tdispatch.FusedBackend()
@@ -136,7 +136,7 @@ def _assert_state_close(t_state: NeuronState, j_state):
 def _port_carry(j_carry):
     state, spikes = j_carry
     return (
-        state_from_numpy(state.v, state.w, state.refrac, state.i_syn),
+        state_from_numpy(state.v, state.w, state.refrac, state.i_syn, device="cpu"),
         torch.as_tensor(np.array(spikes)),
     )
 
@@ -234,7 +234,8 @@ def test_engine_step_equals_dense_oracle():
     rng = np.random.default_rng(21)
     v0 = rng.uniform(-0.07, -0.045, (b, tables.n_neurons)).astype(np.float32)
     zeros = np.zeros_like(v0)
-    state = state_from_numpy(v0, zeros, zeros, np.zeros((*v0.shape, 4), np.float32))
+    state = state_from_numpy(v0, zeros, zeros, np.zeros((*v0.shape, 4), np.float32),
+                             device="cpu")
     spikes = torch.as_tensor((rng.random(v0.shape) < 0.5).astype(np.float32))
     carry, oracle = (state, spikes), (state, spikes)
     for t in range(inp.shape[0]):

@@ -163,7 +163,7 @@ def test_neuron_step_one_step_tolerance_over_50_steps(b):
     jstate = jneuron.init_state(drives.shape[2], jp, batch=b)
     n_spikes = 0
     for t in range(drives.shape[0]):
-        tstate = state_from_numpy(*_state_np(jstate))
+        tstate = state_from_numpy(*_state_np(jstate), device="cpu")
         jstate, jspk = _j_neuron_step(jstate, jnp.asarray(drives[t]), jp, jnp.asarray(i_ext))
         tstate, tspk = tneuron.neuron_step(tstate, torch.as_tensor(drives[t]), tp, torch.as_tensor(i_ext))
         np.testing.assert_array_equal(np.asarray(jspk), tspk.numpy(), err_msg=f"step {t}")
@@ -189,7 +189,7 @@ def test_neuron_step_free_running_spikes_equal_50_steps(b):
     drives, i_ext = _neuron_inputs(b, scale=1.0)
     n = drives.shape[2]
     jstate = jneuron.init_state(n, jp, batch=b)
-    tstate = tneuron.init_state(n, tp, batch=b)
+    tstate = tneuron.init_state(n, tp, batch=b, device="cpu")
     n_spikes = 0
     for t in range(drives.shape[0]):
         jstate, jspk = _j_neuron_step(jstate, jnp.asarray(drives[t]), jp, jnp.asarray(i_ext))
@@ -202,8 +202,8 @@ def test_neuron_step_free_running_spikes_equal_50_steps(b):
 def test_state_from_numpy_round_trip():
     jp = j_poker_params()
     js = jneuron.init_state(8, jp, batch=2)
-    ts = state_from_numpy(js.v, js.w, js.refrac, js.i_syn)
-    ref = tneuron.init_state(8, params_from_jax(jp), batch=2)
+    ts = state_from_numpy(js.v, js.w, js.refrac, js.i_syn, device="cpu")
+    ref = tneuron.init_state(8, params_from_jax(jp), batch=2, device="cpu")
     for name in ("v", "w", "refrac", "i_syn"):
         assert torch.equal(getattr(ts, name), getattr(ref, name))
     assert params_from_jax(jp) == tneuron.NeuronParams(
