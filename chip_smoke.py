@@ -25,7 +25,20 @@ Phases, each of which fails the run on any error:
      run; a short fabric pool with link capacity 8 holds the kernel leg
      against the plain one where links drop; a small network is held
      against the dense oracle on the card; one profiled window of serving
-     steps per kernel backend says where the device time goes.
+     steps per kernel backend says where the device time goes;
+  4. LM serving: rwkv6-3b at full width and depth (32 layers, bfloat16
+     weights initialised on the card from seed 7) serves 8 prompts of 512
+     tokens with 32 new greedy tokens through ``Engine.generate``, which must
+     launch ``rwkv6_chunk`` exactly 32 * ceil(512/64) = 256 times (once per
+     chunk per layer, prefill only); prefill and decode are timed, and one
+     prefill and 31 decode steps are profiled. The kernel leg is held against the
+     ``rwkv_kernel=False`` leg layer by layer (each block on the same input:
+     prefill, then 31 teacher-forced decode steps with the kernel leg's
+     tokens; logits and every layer's ``wkv`` state), and at float32 with 2
+     layers of full width the chunked prefill on the kernel is held against
+     the sequential oracle. ``rwkv6_chunk`` itself is held against its plain
+     version in phase 2 at B = 8, T = 64, H = 40, P = 64, on a deep-decay
+     input (log_w = -e) and on a tail chunk (T = 8).
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (the plain stage 2
@@ -36,7 +49,9 @@ contracts a one-hot with a float32 matmul). Run from the repository root:
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -49,6 +64,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cnn import compile_poker_cnn  # noqa: E402
 from repro_torch.core.dispatch import FabricBackend  # noqa: E402
 from repro_torch.core.event_engine import (  # noqa: E402
@@ -64,6 +80,9 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cam_match import ops as cam_ops  # noqa: E402
 from repro_torch.kernels.fabric_deliver import ops as fabric_ops  # noqa: E402
 from repro_torch.kernels.fused_deliver import ops as fused_ops  # noqa: E402
+from repro_torch.kernels.rwkv6 import ops as rwkv_ops  # noqa: E402
+from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serve.aer import (  # noqa: E402
     AerServeConfig,
     AerSessionPool,
@@ -71,10 +90,12 @@ from repro_torch.serve.aer import (  # noqa: E402
     build_poker_engine,
     tune_poker_readout,
 )
+from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 POOL, SESSIONS, SEED, EVENTS_PER_STEP = 32, 64, 7, 16
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 32  # rwkv6-3b serving: prompts, prompt length, new tokens
 OUT_DIR = ROOT / "build" / "chip_smoke"  # long results; build/ is not committed
 
 
@@ -253,6 +274,7 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
             f"random floats, within allclose(rtol=1e-6, atol=1e-6); "
             f"{v['ms'] * 1e3:.2f} us/call (kernel on the device {v['device_ms']} ms), plain "
             f"{v['plain_ms'] * 1e3:.2f} us, bound {v['bound_ms'] * 1e3:.3f} us ({v['bound_by']})")
+    out["rwkv6_chunk"] = rwkv_kernel_entry(dev)
     return out
 
 
@@ -362,6 +384,87 @@ def check_fabric_wrap(dev: torch.device) -> None:
         f"max_delay {max_delay}, link capacity 2 ({link_dropped} link drops)")
 
 
+def _chunk_work(b: int, t: int, h: int, p: int) -> tuple[int, int]:
+    """(float32 add/sub/mul count, exp count) of one rwkv6_chunk call, as the
+    kernel computes it per (batch, head): the cumulative decay (2TP), the
+    pairs i < t of the a matrix (4 ops and one exp per channel), the bonus
+    diagonal (3TP), folding the decays into r and k (3TP, 2TP exps), the
+    products a v (P T (T + 1)), r' s0 and k'^T v (2TP^2 each) and the s0
+    decay (2P^2, P exps)."""
+    pairs = t * (t - 1) // 2
+    flops = (2 * t * p + 4 * pairs * p + 3 * t * p + 3 * t * p + p * t * (t + 1)
+             + 4 * t * p * p + 2 * p * p)
+    exps = pairs * p + 2 * t * p + p
+    return b * h * flops, b * h * exps
+
+
+def rwkv_kernel_entry(dev: torch.device) -> dict:
+    """``rwkv6_chunk`` at rwkv6-3b's prefill shape (B = 8, T = ssm_chunk = 64,
+    H = 40, P = 64) on inputs drawn as repro's kernel test draws them, on a
+    deep-decay input (log_w = -e everywhere: cum reaches -174) and on a tail
+    chunk (T = 8), each held against the plain version with
+    allclose(rtol=1e-4, atol=1e-5), repro's own tolerance for its Pallas
+    kernel (tests/test_kernels.py); then timed at the prefill shape."""
+    cfg = get_config("rwkv6-3b")
+    h, p = cfg.n_heads, cfg.d_model // cfg.n_heads
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def inputs(t, deep):
+        shape = (LM_BATCH, t, h, p)
+        r, k, v = (torch.randn(shape, generator=gen, device=dev) * 0.5 for _ in range(3))
+        if deep:
+            lw = torch.full(shape, -math.e, device=dev)
+        else:
+            lw = -(torch.rand(shape, generator=gen, device=dev) * 0.99 + 0.01)
+        u = torch.randn((h, p), generator=gen, device=dev) * 0.1
+        s0 = torch.randn((LM_BATCH, h, p, p), generator=gen, device=dev) * 0.2
+        return r, k, v, lw, u, s0
+
+    cases = {"prefill shape": inputs(cfg.ssm_chunk, False), "deep decay": inputs(cfg.ssm_chunk, True),
+             "tail chunk T=8": inputs(8, False)}
+    errs = {}
+    for name, args in cases.items():
+        y, s1 = rwkv_ops.rwkv6_chunk(*args)
+        torch.cuda.synchronize()
+        y_ref, s1_ref = rwkv_ops.rwkv6_chunk_ref(*args)
+        if not (torch.isfinite(y).all() and torch.isfinite(s1).all()):
+            raise AssertionError(f"rwkv6_chunk: non-finite output on the {name} input")
+        torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(s1, s1_ref, rtol=1e-4, atol=1e-5)
+        errs[name] = max(float((y - y_ref).abs().max()), float((s1 - s1_ref).abs().max()))
+    args = cases["prefill shape"]
+    y, s1 = rwkv_ops.rwkv6_chunk(*args)
+    n_bytes = _nbytes(*args, y, s1)
+    flops, exps = _chunk_work(LM_BATCH, cfg.ssm_chunk, h, p)
+    bound_ms, bound_by = _bound(n_bytes, flops + exps)
+    entry = {
+        "name": "rwkv6_chunk",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6_chunk.cu",
+        "replaces": "src/repro/kernels/rwkv6/rwkv6.py:23",
+        "max_abs_err": errs["prefill shape"],
+        "max_abs_err_deep_decay": errs["deep decay"],
+        "max_abs_err_tail_chunk": errs["tail chunk T=8"],
+        "ms": time_ms(lambda: rwkv_ops.rwkv6_chunk(*args)),
+        "plain_ms": time_ms(lambda: rwkv_ops.rwkv6_chunk_ref(*args), repeats=10, inner=5),
+        "device_ms": device_ms(lambda: rwkv_ops.rwkv6_chunk(*args), "rwkv6_chunk_kernel"),
+        "bytes": n_bytes,
+        "flops": flops,
+        "exps": exps,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes a WKV chunk
+        "shape": f"r/k/v/log_w [{LM_BATCH},{cfg.ssm_chunk},{h},{p}] f32, u [{h},{p}], "
+                 f"s0 [{LM_BATCH},{h},{p},{p}] f32",
+    }
+    log(f"rwkv6_chunk: within allclose(rtol=1e-4, atol=1e-5) of the plain version; max_abs_err "
+        f"{entry['max_abs_err']:.3g} (deep decay {entry['max_abs_err_deep_decay']:.3g}, tail chunk "
+        f"{entry['max_abs_err_tail_chunk']:.3g}); {entry['ms'] * 1e3:.2f} us/call (kernel on the "
+        f"device {entry['device_ms']} ms), plain {entry['plain_ms'] * 1e3:.2f} us, bound "
+        f"{bound_ms * 1e3:.3f} us ({bound_by}; {n_bytes} bytes, {flops} flops + {exps} exp)")
+    return entry
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving
 # ---------------------------------------------------------------------------
@@ -383,6 +486,7 @@ KERNEL_WRAPPERS = {
     "cam_match": cam_ops.cam_match,
     "fused_deliver": fused_ops.fused_deliver,
     "fabric_deliver": fabric_ops.fabric_deliver,
+    "rwkv6_chunk": rwkv_ops.rwkv6_chunk,
 }
 # serving legs: (label, backend, fabric_options, the kernel it must launch once per step)
 LEGS = (
@@ -585,6 +689,246 @@ def phase_serving(dev: torch.device) -> dict[str, int]:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4: LM serving (rwkv6-3b)
+# ---------------------------------------------------------------------------
+STREAM_TOL = 2.0**-5  # bfloat16 residual stream: 4 ulps at its largest element
+
+
+def _stream_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Largest difference over the largest magnitude of ``want``; fails past
+    STREAM_TOL. A chunk output that rounds to the next bfloat16 value moves
+    the block's output by an ulp or two at the stream's scale."""
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    if not err <= STREAM_TOL:
+        raise AssertionError(f"{what}: kernel and plain legs differ by {err:.3g} of the "
+                             f"largest value, past {STREAM_TOL}")
+    return err
+
+
+def check_lm_layers(model, prompts: torch.Tensor, new_tokens: torch.Tensor) -> dict:
+    """Each layer of the kernel leg against the ``rwkv_kernel=False`` leg on
+    the same input: the prefill, then teacher-forced decode steps feeding the
+    kernel leg's tokens. Both legs carry their own caches; the input to every
+    block is the kernel leg's stream. Block outputs and logits within
+    STREAM_TOL of their largest value, ``wkv`` states allclose(rtol=1e-4,
+    atol=1e-3) (float32 sums in two orders, states of order 100), ``x_prev``
+    equal.
+
+    Layer by layer, because end to end the comparison says nothing: the
+    randomly initialised 32-layer stack amplifies a one-ulp bfloat16
+    difference in one layer's output into different logits a few layers on,
+    for any two correct float32 orders of the chunk's sums (the end-to-end
+    numbers are reported beside).
+    """
+    cfg = model.cfg
+    b = prompts.shape[0]
+    caches = {kernel: model.init_caches(b, LM_PROMPT + LM_NEW)["stack"] for kernel in (True, False)}
+    worst = {"stream": 0.0, "logits": 0.0, "wkv": 0.0}
+
+    def step(tokens, what):
+        x = lm_layers.embed(model.embedding.table, tokens, cfg.scale_embeddings, cfg.d_model)
+        x = x.to(lm_layers.dt(cfg.compute_dtype))
+        for i, block in enumerate(model.stack):
+            outs = {kernel: block(x, caches[kernel][i], use_kernel=kernel) for kernel in (True, False)}
+            (xk, ck), (xp, cp) = outs[True], outs[False]
+            worst["stream"] = max(worst["stream"], _stream_err(xk, xp, f"{what}, layer {i}"))
+            torch.testing.assert_close(ck["wkv"], cp["wkv"], rtol=1e-4, atol=1e-3)
+            worst["wkv"] = max(worst["wkv"], float((ck["wkv"] - cp["wkv"]).abs().max()))
+            if not torch.equal(ck["x_prev"], cp["x_prev"]):
+                raise AssertionError(f"{what}, layer {i}: x_prev differs")
+            caches[True][i], caches[False][i] = ck, cp
+            x = xk
+        logits = {k: model._unembed(model.final_norm(o[0])[:, -1:]) for k, o in outs.items()}
+        worst["logits"] = max(worst["logits"],
+                              _stream_err(logits[True], logits[False], f"{what}, logits"))
+
+    with torch.inference_mode():
+        step(prompts, "prefill")
+        for t in range(new_tokens.shape[1] - 1):
+            step(new_tokens[:, t:t + 1], f"decode step {t}")
+    return {"max_rel_err_stream": worst["stream"], "max_rel_err_logits": worst["logits"],
+            "max_abs_err_wkv": worst["wkv"], "decode_steps": new_tokens.shape[1] - 1}
+
+
+def _timed(fn) -> tuple[object, float]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def profile_lm(fn, per: int = 1) -> dict:
+    """One call of ``fn`` under torch.profiler, reported per ``per`` steps:
+    wall ms, device busy ms, device ops, the rwkv6_chunk kernel's device ms,
+    the device idle share of the wall time and the largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with torch.inference_mode(), profile(activities=activities) as prof:
+        _, wall_ms = _timed(fn)
+    by_kernel: dict[str, float] = {}
+    n_ops = 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+            n_ops += 1
+    busy = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+    return {
+        "steps": per,
+        "wall_ms": wall_ms / per,
+        "device_busy_ms": busy / per,
+        "device_ops": n_ops / per,
+        "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+        "rwkv6_chunk_device_ms": sum(ms for name, ms in by_kernel.items()
+                                     if "rwkv6_chunk_kernel" in name) / per,
+        "top_device_ms": {name[:100]: ms / per for name, ms in top},
+    }
+
+
+def phase_lm(dev: torch.device) -> dict[str, int]:
+    cfg = get_config("rwkv6-3b")
+    per_prefill = cfg.n_layers * math.ceil(LM_PROMPT / cfg.ssm_chunk)
+    model, init_ms = _timed(lambda: build_model(cfg, device=dev, seed=SEED))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"rwkv6-3b: {n_params} parameters, {cfg.n_layers} layers, {cfg.param_dtype}, initialised "
+        f"on the card in {init_ms:.0f} ms; memory allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    prompts_np = np.random.default_rng(SEED).integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT))
+    prompts = torch.as_tensor(prompts_np, device=dev)
+    engine = Engine(model, ServeConfig(max_len=LM_PROMPT + LM_NEW))
+
+    def fresh():
+        return model.init_caches(LM_BATCH, LM_PROMPT + LM_NEW)
+
+    engine.generate(prompts[:, :96], 2)  # first-use allocations, cuBLAS handles, library load
+
+    # the main path: Engine.generate, counts reset just before and read just after
+    torch.cuda.synchronize()
+    _reset_counts()
+    tokens, gen_ms = _timed(lambda: engine.generate(prompts_np, LM_NEW))
+    counts = _read_counts()
+    want = {name: (per_prefill if name == "rwkv6_chunk" else 0) for name in counts}
+    if counts != want:
+        raise AssertionError(f"rwkv6-3b generate: launches {counts}, expected {want}")
+    if tokens.shape != (LM_BATCH, LM_NEW) or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab:
+        raise AssertionError(f"rwkv6-3b generate: tokens of shape {tuple(tokens.shape)} "
+                             f"in [{int(tokens.min())}, {int(tokens.max())}]")
+    lm = {"generate_ms": gen_ms, "generate_tokens_per_s": LM_BATCH * LM_NEW / gen_ms * 1e3,
+          "launches": counts}
+
+    # prefill and decode timed apart (median of 3 prefills; 31 decode steps)
+    with torch.inference_mode():
+        prefill_ms, repeats = [], []
+        for _ in range(3):
+            before = rwkv_ops.rwkv6_chunk.launches
+            (logits, caches), ms = _timed(lambda: model.prefill(prompts, fresh()))
+            if rwkv_ops.rwkv6_chunk.launches - before != per_prefill:
+                raise AssertionError("a prefill did not launch rwkv6_chunk once per chunk per layer")
+            prefill_ms.append(ms)
+            repeats.append(logits)
+        if not torch.isfinite(logits).all() or logits.shape != (LM_BATCH, 1, cfg.vocab):
+            raise AssertionError(f"prefill logits: shape {tuple(logits.shape)}, or not finite")
+
+        def decode():
+            c = caches
+            for t in range(LM_NEW - 1):
+                pos = torch.full((LM_BATCH, 1), LM_PROMPT + t, device=dev)
+                lg, c = model.decode_step(tokens[:, t:t + 1], pos, c)
+            return lg
+
+        last, decode_ms = _timed(decode)
+        if not torch.isfinite(last).all():
+            raise AssertionError("decode logits are not finite")
+    pf = statistics.median(prefill_ms)
+    per_token = decode_ms / (LM_NEW - 1)
+    lm.update(prefill_ms=pf, prefill_ms_runs=prefill_ms,
+              prefill_tokens_per_s=LM_BATCH * LM_PROMPT / pf * 1e3,
+              decode_ms_per_step=per_token, decode_tokens_per_s=LM_BATCH / per_token * 1e3)
+    lm["prefill_bitwise_repeatable"] = all(torch.equal(x, repeats[0]) for x in repeats)
+    lm["profile_prefill"] = prof = profile_lm(lambda: model.prefill(prompts, fresh()))
+    lm["profile_decode"] = dprof = profile_lm(decode, per=LM_NEW - 1)
+    log(f"rwkv6-3b serve (B = {LM_BATCH}, prompt {LM_PROMPT}, {LM_NEW} new, greedy): generate "
+        f"{gen_ms:.1f} ms ({lm['generate_tokens_per_s']:.1f} new tokens/s), rwkv6_chunk launched "
+        f"{counts['rwkv6_chunk']} times (= {cfg.n_layers} layers x {per_prefill // cfg.n_layers} "
+        f"chunks); prefill {pf:.2f} ms ({lm['prefill_tokens_per_s']:.0f} tokens/s), decode "
+        f"{per_token:.2f} ms/step ({lm['decode_tokens_per_s']:.1f} tokens/s); three prefills "
+        f"bitwise equal: {lm['prefill_bitwise_repeatable']}")
+    for what, pr in (("prefill", prof), ("decode step", dprof)):
+        log(f"  profiled {what}: wall {pr['wall_ms']:.2f} ms, device busy {pr['device_busy_ms']:.2f} "
+            f"ms over {pr['device_ops']:.0f} device ops, idle share {pr['device_idle_share']:.3f}, "
+            f"rwkv6_chunk {pr['rwkv6_chunk_device_ms']:.3f} ms")
+
+    # the kernel leg against the rwkv_kernel=False leg, layer by layer
+    lm["layers"] = check_lm_layers(model, prompts, tokens)
+    log(f"rwkv6-3b kernel vs plain leg, layer by layer (prefill + {LM_NEW - 1} teacher-forced decode "
+        f"steps): block outputs within {lm['layers']['max_rel_err_stream']:.3g} and logits within "
+        f"{lm['layers']['max_rel_err_logits']:.3g} of their largest value (limit {STREAM_TOL}); wkv "
+        f"max abs err {lm['layers']['max_abs_err_wkv']:.3g}, allclose(rtol=1e-4, atol=1e-3)")
+    # end to end, for the record: the plain leg's own prefill and tokens
+    model.rwkv_kernel = False
+    with torch.inference_mode():
+        (plain_logits, _), plain_ms = _timed(lambda: model.prefill(prompts, fresh()))
+    plain_tokens = engine.generate(prompts_np, LM_NEW)
+    model.rwkv_kernel = True
+    lm["plain_leg"] = {
+        "prefill_ms": plain_ms,
+        "end_to_end_prefill_logits_max_abs_diff": float((plain_logits - logits).abs().max()),
+        "prefill_logits_max_abs": float(logits.abs().max()),
+        "greedy_tokens_equal_share": float((plain_tokens == tokens).float().mean()),
+        "first_token_equal_share": float((plain_tokens[:, 0] == tokens[:, 0]).float().mean()),
+    }
+    log(f"rwkv6-3b plain leg end to end: prefill {plain_ms:.1f} ms; prefill logits max abs diff "
+        f"{lm['plain_leg']['end_to_end_prefill_logits_max_abs_diff']:.3g} (logits up to "
+        f"{lm['plain_leg']['prefill_logits_max_abs']:.3g}); greedy tokens equal "
+        f"{lm['plain_leg']['greedy_tokens_equal_share']:.3f} (first token "
+        f"{lm['plain_leg']['first_token_equal_share']:.3f})")
+    del model, engine, caches, logits, plain_logits
+    torch.cuda.empty_cache()
+    lm["fp32_two_layers"] = check_fp32_sequential(dev, cfg, prompts)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "chip_smoke_lm.json").write_text(json.dumps(lm, indent=1))
+    return {"rwkv6_chunk": counts["rwkv6_chunk"]}
+
+
+def check_fp32_sequential(dev: torch.device, cfg, prompts: torch.Tensor) -> dict:
+    """rwkv6-3b at full width, 2 layers, float32: the chunked prefill on the
+    kernel against the sequential oracle (repro's rwkv6_sequential_core).
+    Logits allclose(rtol=1e-3, atol=1e-4); states allclose(rtol=1e-3,
+    atol=1e-3): float32 sums over 512 tokens in two orders, states of order
+    100. With 2 layers and no bfloat16 rounding the two stay close end to end."""
+    cfg32 = dataclasses.replace(cfg, n_periods=2, param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg32, device=dev, seed=SEED)
+    b = prompts.shape[0]
+    max_len = LM_PROMPT + LM_NEW
+    with torch.inference_mode():
+        before = rwkv_ops.rwkv6_chunk.launches
+        (logits, caches), chunked_ms = _timed(
+            lambda: model.prefill(prompts, model.init_caches(b, max_len)))
+        launched = rwkv_ops.rwkv6_chunk.launches - before
+        (seq_logits, seq_caches), seq_ms = _timed(
+            lambda: model.prefill(prompts, model.init_caches(b, max_len), sequential=True))
+    want = cfg32.n_layers * math.ceil(prompts.shape[1] / cfg.ssm_chunk)
+    if launched != want or rwkv_ops.rwkv6_chunk.launches - before != want:
+        raise AssertionError(f"fp32 chunked prefill launched rwkv6_chunk {launched} times, not {want}")
+    torch.testing.assert_close(logits, seq_logits, rtol=1e-3, atol=1e-4)
+    for got, ref in zip(caches["stack"], seq_caches["stack"]):
+        torch.testing.assert_close(got["wkv"], ref["wkv"], rtol=1e-3, atol=1e-3)
+    out = {
+        "logits_max_abs_err": float((logits - seq_logits).abs().max()),
+        "wkv_max_abs_err": max(float((g["wkv"] - r["wkv"]).abs().max())
+                               for g, r in zip(caches["stack"], seq_caches["stack"])),
+        "chunked_ms": chunked_ms, "sequential_ms": seq_ms,
+    }
+    log(f"rwkv6-3b fp32, 2 layers at full width: chunked prefill on the kernel equals the sequential "
+        f"oracle (logits max abs err {out['logits_max_abs_err']:.3g}, wkv {out['wkv_max_abs_err']:.3g}); "
+        f"{chunked_ms:.1f} ms chunked, {seq_ms:.1f} ms sequential")
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on the GPU only")
@@ -594,6 +938,7 @@ def main() -> None:
     phase_card_and_build()
     kernels = phase_kernels(dev)
     launches = phase_serving(dev)
+    launches.update(phase_lm(dev))
     if set(launches) != set(kernels):
         raise AssertionError(f"serving legs launched {sorted(launches)}, kernels {sorted(kernels)}")
     for name, n in launches.items():

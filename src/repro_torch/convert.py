@@ -1,8 +1,9 @@
-"""Carry routing tables, neuron parameters and neuron state across from ``repro``.
+"""Carry routing tables, neuron parameters, neuron state and LM weights across
+from ``repro``.
 
 The functions read plain numpy arrays and dataclass fields, so they work on
 ``repro`` objects without importing ``repro`` (or JAX): tests use them to
-feed both packages the same network and state.
+feed both packages the same network, state and weights.
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.neuron import NeuronParams, NeuronState
 from repro_torch.core.tags import RoutingTables
 
-__all__ = ["tables_from_numpy", "params_from_jax", "state_from_numpy", "carry_from_numpy"]
+__all__ = [
+    "carry_from_numpy", "lm_params_from_numpy", "params_from_jax", "state_from_numpy",
+    "tables_from_numpy",
+]
 
 
 def tables_from_numpy(tables) -> RoutingTables:
@@ -78,3 +82,48 @@ def carry_from_numpy(carry, device: torch.device | str = "cuda") -> tuple:
     if len(delay_line) == 2:
         out.append(torch.as_tensor(np.array(delay_line[1], dtype=np.int32), device=device))
     return tuple(out)
+
+
+def lm_params_from_numpy(cfg, tree, device: torch.device | str = "cuda") -> dict[str, torch.Tensor]:
+    """The port's LM state dict from ``repro``'s parameter pytree as numpy
+    arrays (``jax.tree.map(np.asarray, params)``), for ``Model.load_state_dict``.
+
+    ``repro`` stacks its scanned periods along a leading ``[n_periods]`` axis
+    (``tree["stack"]["periods"]["b{i}"]``); the port's stack has one module per
+    layer, so period ``p``'s block ``i`` becomes ``stack.{p * len(period) + i}``.
+    Every array keeps its dtype (bfloat16 stays bfloat16) and lands on
+    ``device``, the card unless the caller asks for the CPU.
+    """
+    device = resolve_device(device)
+    n_p = len(cfg.period)
+    out: dict[str, torch.Tensor] = {}
+
+    def put(name: str, a) -> None:
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # numpy has no bfloat16: go through float32, exactly
+            out[name] = torch.as_tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+        else:
+            out[name] = torch.as_tensor(np.array(a), device=device)
+
+    for path, a in _leaves(tree):
+        if path[0] in ("embedding", "unembed", "final_norm"):
+            put(".".join(path), a)
+        elif path[:2] == ("stack", "periods") and len(path) > 3:
+            i = int(path[2].removeprefix("b"))
+            for period in range(np.shape(a)[0]):
+                put(".".join(("stack", str(period * n_p + i), *path[3:])), a[period])
+        else:
+            raise NotImplementedError(
+                f"parameter {'/'.join(path)} belongs to a part of the model that is not "
+                "ported to repro_torch yet (ROADMAP queue 1 item 12)"
+            )
+    return out
+
+
+def _leaves(tree, path: tuple[str, ...] = ()):
+    """(path, leaf) pairs of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from _leaves(tree[key], (*path, str(key)))
+    else:
+        yield path, tree

@@ -10,13 +10,19 @@ Tolerances: bit-exact on integer-valued inputs (sums below 2**24 are exact
 in float32 in any order); allclose(rtol=1e-6, atol=1e-6) on random floats,
 where the order of the shared-memory atomics and of the per-type sums may
 differ from the plain version's. TF32 is off (the plain stage 2 contracts a
-one-hot with a float32 matmul).
+one-hot with a float32 matmul). ``rwkv6_chunk`` is held to
+allclose(rtol=1e-4, atol=1e-5), the tolerance repro's own kernel test holds
+its Pallas kernel to (tests/test_kernels.py): float32 sums of up to 128
+terms with exponentials, taken in another order.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.cnn import compile_poker_cnn
 from repro_torch.core.dispatch import FabricBackend
 from repro_torch.core.routing import ChipConstants, Fabric
@@ -25,6 +31,8 @@ from repro_torch.data.pipeline import DvsStreamConfig, DvsStreamSource
 from repro_torch.kernels.cam_match import ops as cam_ops
 from repro_torch.kernels.fabric_deliver import ops as fabric_ops
 from repro_torch.kernels.fused_deliver import ops as fused_ops
+from repro_torch.kernels.rwkv6 import ops as rwkv_ops
+from repro_torch.models.model import build_model
 from repro_torch.serve.aer import AerServeConfig, AerSessionPool, DvsSession, build_poker_engine
 
 pytestmark = pytest.mark.cuda
@@ -281,3 +289,87 @@ def test_cuda_fabric_pool_kernel_and_plain_legs_agree(cuda):
             ]
         assert summaries[True] == summaries[False]
         assert (sum(r[-1] for r in summaries[True]) > 0) == (cap is not None)
+
+
+# ---------------------------------------------------------------------------
+# rwkv6_chunk: one chunk of RWKV-6 WKV linear attention
+# ---------------------------------------------------------------------------
+def _rwkv_inputs(dev, b, t, h, p, decay, seed, chunks=1):
+    """r/k/v/log_w [B, T, H, P] as repro's kernel test draws them; with
+    ``chunks`` > 1 they are the last chunk sliced out of a longer sequence
+    (a batch stride of chunks * T * H * P, as the chunked core passes them)."""
+    rng = np.random.default_rng(seed)
+    shape = (b, chunks * t, h, p)
+    r, k, v = (torch.as_tensor(rng.normal(size=shape).astype(np.float32) * 0.5, device=dev)
+               for _ in range(3))
+    if decay == "deep":  # log_w at its floor, -e: cum reaches -e * T
+        lw = torch.full(shape, -np.e, dtype=torch.float32, device=dev)
+    else:
+        lw = -torch.as_tensor(rng.uniform(0.01, 1.0, size=shape).astype(np.float32), device=dev)
+    u = torch.as_tensor(rng.normal(size=(h, p)).astype(np.float32) * 0.1, device=dev)
+    s0 = torch.as_tensor(rng.normal(size=(b, h, p, p)).astype(np.float32) * 0.2, device=dev)
+    last = [x.reshape(b, chunks, t, h, p)[:, -1] for x in (r, k, v, lw)]
+    return (*last, u, s0)
+
+
+@pytest.mark.parametrize(
+    "b,t,h,p,decay,chunks",
+    [
+        (2, 8, 4, 12, "uniform", 1),  # the rwkv6-3b smoke config's chunk
+        (8, 64, 40, 64, "uniform", 1),  # rwkv6-3b at B = 8
+        (8, 64, 40, 64, "deep", 1),  # log_w = -e everywhere
+        (8, 8, 40, 64, "uniform", 1),  # a short tail chunk
+        (3, 64, 4, 64, "uniform", 3),  # a chunk sliced out of a sequence
+    ],
+)
+def test_cuda_rwkv6_chunk_matches_plain(cuda, b, t, h, p, decay, chunks):
+    args = _rwkv_inputs(cuda, b, t, h, p, decay, seed=b * 100 + t, chunks=chunks)
+    before = rwkv_ops.rwkv6_chunk.launches
+    y, s1 = rwkv_ops.rwkv6_chunk(*args)
+    torch.cuda.synchronize()
+    assert rwkv_ops.rwkv6_chunk.launches == before + 1
+    y_ref, s1_ref = rwkv_ops.rwkv6_chunk_ref(*args)
+    assert y.shape == (b, t, h, p) and s1.shape == (b, h, p, p)
+    assert torch.isfinite(y).all() and torch.isfinite(s1).all()
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(s1, s1_ref, rtol=1e-4, atol=1e-5)
+
+
+def test_cuda_rwkv6_chunk_raises_on_bad_arguments(cuda):
+    r, k, v, lw, u, s0 = _rwkv_inputs(cuda, 2, 8, 4, 16, "uniform", seed=1)
+    with pytest.raises(ValueError, match="dtype"):
+        rwkv_ops.rwkv6_chunk(r.double(), k, v, lw, u, s0)
+    with pytest.raises(ValueError, match="strides"):
+        rwkv_ops.rwkv6_chunk(r.transpose(2, 3).contiguous().transpose(2, 3), k, v, lw, u, s0)
+    with pytest.raises(ValueError, match="is on"):
+        rwkv_ops.rwkv6_chunk(r, k, v, lw, u.cpu(), s0)
+    # shapes past the kernel's tiles are refused, not run elsewhere
+    big = _rwkv_inputs(cuda, 1, 65, 1, 16, "uniform", seed=2)
+    with pytest.raises(ValueError, match="no fallback"):
+        rwkv_ops.rwkv6_chunk(*big)
+    wide = _rwkv_inputs(cuda, 1, 8, 1, 128, "uniform", seed=3)
+    with pytest.raises(ValueError, match="no fallback"):
+        rwkv_ops.rwkv6_chunk(*wide)
+
+
+def test_cuda_rwkv6_3b_two_layers_fp32_chunked_prefill_equals_sequential(cuda):
+    """rwkv6-3b at full width, 2 layers, float32: prefill on the kernel (a
+    61-token prompt: one chunk of 64, padded) against the sequential oracle.
+    Logits allclose(rtol=1e-3, atol=1e-4) and states allclose(rtol=1e-3,
+    atol=1e-3): float32 sums over 61 tokens and 2560 channels taken in two
+    orders, in states that reach about 100."""
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), n_periods=2, param_dtype="float32",
+                              compute_dtype="float32")
+    model = build_model(cfg, device=cuda, seed=3)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 61)), device=cuda)
+    with torch.inference_mode():
+        before = rwkv_ops.rwkv6_chunk.launches
+        logits, caches = model.prefill(toks, model.init_caches(2, 64))
+        torch.cuda.synchronize()
+        assert rwkv_ops.rwkv6_chunk.launches == before + 2
+        seq_logits, seq_caches = model.prefill(toks, model.init_caches(2, 64), sequential=True)
+    assert rwkv_ops.rwkv6_chunk.launches == before + 2
+    assert torch.isfinite(logits).all()
+    torch.testing.assert_close(logits, seq_logits, rtol=1e-3, atol=1e-4)
+    for got, want in zip(caches["stack"], seq_caches["stack"]):
+        torch.testing.assert_close(got["wkv"], want["wkv"], rtol=1e-3, atol=1e-3)

@@ -121,7 +121,7 @@ def test_event_entries_flat_layout():
 
 
 def test_kernel_sources_found_and_flags_target_hopper():
-    assert set(_build.sources()) == {"cam_match", "fused_deliver", "fabric_deliver"}
+    assert set(_build.sources()) == {"cam_match", "fused_deliver", "fabric_deliver", "rwkv6_chunk"}
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     assert _build.build_dir().name == "kernels" and _build.build_dir().parent.name == "build"
