@@ -37,8 +37,10 @@ Phases, each of which fails the run on any error:
      tokens; logits and every layer's ``wkv`` state), and at float32 with 2
      layers of full width the chunked prefill on the kernel is held against
      the sequential oracle. ``rwkv6_chunk`` itself is held against its plain
-     version in phase 2 at B = 8, T = 64, H = 40, P = 64, on a deep-decay
-     input (log_w = -e) and on a tail chunk (T = 8).
+     version in phase 2 at B = 8, T = 64, H = 40, P = 64, on deep (log_w =
+     -e) and extreme (down to -90 per token) decays, on a chunk ending in
+     the chunked core's padding, and on tail chunks of T = 8, 17 and 37;
+     its registers, spills, shared bytes and blocks per SM are logged.
 
 Prints a ``{"kernels": [...]}`` JSON line, then as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (the plain stage 2
@@ -49,9 +51,12 @@ contracts a one-hot with a float32 matmul). Run from the repository root:
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -386,42 +391,73 @@ def check_fabric_wrap(dev: torch.device) -> None:
 
 def _chunk_work(b: int, t: int, h: int, p: int) -> tuple[int, int]:
     """(float32 add/sub/mul count, exp count) of one rwkv6_chunk call, as the
-    kernel computes it per (batch, head): the cumulative decay (2TP), the
-    pairs i < t of the a matrix (4 ops and one exp per channel), the bonus
-    diagonal (3TP), folding the decays into r and k (3TP, 2TP exps), the
-    products a v (P T (T + 1)), r' s0 and k'^T v (2TP^2 each) and the s0
-    decay (2P^2, P exps)."""
-    pairs = t * (t - 1) // 2
-    flops = (2 * t * p + 4 * pairs * p + 3 * t * p + 3 * t * p + p * t * (t + 1)
-             + 4 * t * p * p + 2 * p * p)
-    exps = pairs * p + 2 * t * p + p
+    kernel computes it per (batch, head) on sub-chunks of 16 tokens: the
+    cumulative decay (2TP); the diagonal blocks' pairs i < t (4 ops and one
+    exp per channel) and bonus diagonal (3TP); the decay vectors (15P exps)
+    and folding the decays into r and k (2TP ops and exps); the off-diagonal
+    blocks of a (2 P per entry, plus the e scaling), a v over the
+    block-lower triangle, r' s0 and k'^T v (2TP^2 each, plus the g and f
+    scaling), and the s0 decay (2P^2). A product counts its multiply-adds
+    once, whatever passes the tensor cores make."""
+    sub = 16
+    sizes = [min(sub, t - j0) for j0 in range(0, t, sub)]
+    diag_pairs = sum(n * (n - 1) // 2 for n in sizes)
+    off = sum(sizes[j] * sizes[i] for j in range(len(sizes)) for i in range(j))
+    lower = sum(sizes[j] * sum(sizes[:j + 1]) for j in range(len(sizes)))
+    flops = (2 * t * p + 4 * diag_pairs * p + 3 * t * p + 2 * t * p
+             + 2 * off * p + off * p + 2 * lower * p
+             + 4 * t * p * p + 2 * t * p + 2 * p * p)
+    exps = diag_pairs * p + 15 * p + 2 * t * p
     return b * h * flops, b * h * exps
+
+
+def _sass_counts(name: str) -> dict[str, int] | None:
+    """Tensor-core (HMMA, HGMMA) and MUFU.EX2 instructions in the SASS of the
+    built kernel library ``name`` (``cuobjdump -sass``), by mnemonic; None
+    where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    lib = _build.library_path(name)
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    return dict(collections.Counter(re.findall(r"\b(?:HMMA|HGMMA)\.[\w.]+|\bMUFU\.EX2\b", sass)))
 
 
 def rwkv_kernel_entry(dev: torch.device) -> dict:
     """``rwkv6_chunk`` at rwkv6-3b's prefill shape (B = 8, T = ssm_chunk = 64,
     H = 40, P = 64) on inputs drawn as repro's kernel test draws them, on a
-    deep-decay input (log_w = -e everywhere: cum reaches -174) and on a tail
-    chunk (T = 8), each held against the plain version with
-    allclose(rtol=1e-4, atol=1e-5), repro's own tolerance for its Pallas
-    kernel (tests/test_kernels.py); then timed at the prefill shape."""
+    deep-decay input (log_w = -e everywhere: cum reaches -174), an extreme
+    one (log_w = -exp(U[-20, 4.5]), down to -90 per token), a chunk whose
+    last 21 tokens are the chunked core's padding (log_w = 0, r = k = v = 0),
+    and on tail chunks of T = 8, 17 and 37 (ragged sub-chunks of 16), each
+    held against the plain version with allclose(rtol=1e-4, atol=1e-5),
+    repro's own tolerance for its Pallas kernel (tests/test_kernels.py);
+    then timed at the prefill shape."""
     cfg = get_config("rwkv6-3b")
     h, p = cfg.n_heads, cfg.d_model // cfg.n_heads
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
-    def inputs(t, deep):
+    def inputs(t, decay="uniform"):
         shape = (LM_BATCH, t, h, p)
         r, k, v = (torch.randn(shape, generator=gen, device=dev) * 0.5 for _ in range(3))
-        if deep:
+        if decay == "deep":
             lw = torch.full(shape, -math.e, device=dev)
+        elif decay == "extreme":
+            lw = -torch.exp(torch.rand(shape, generator=gen, device=dev) * 24.5 - 20.0)
         else:
             lw = -(torch.rand(shape, generator=gen, device=dev) * 0.99 + 0.01)
+        if decay == "padded":
+            for x in (r, k, v, lw):
+                x[:, -21:] = 0.0
         u = torch.randn((h, p), generator=gen, device=dev) * 0.1
         s0 = torch.randn((LM_BATCH, h, p, p), generator=gen, device=dev) * 0.2
         return r, k, v, lw, u, s0
 
-    cases = {"prefill shape": inputs(cfg.ssm_chunk, False), "deep decay": inputs(cfg.ssm_chunk, True),
-             "tail chunk T=8": inputs(8, False)}
+    cases = {"prefill shape": inputs(cfg.ssm_chunk), "deep decay": inputs(cfg.ssm_chunk, "deep"),
+             "extreme decay": inputs(cfg.ssm_chunk, "extreme"),
+             "padded tail": inputs(cfg.ssm_chunk, "padded"),
+             "tail chunk T=8": inputs(8), "ragged T=17": inputs(17), "ragged T=37": inputs(37)}
     errs = {}
     for name, args in cases.items():
         y, s1 = rwkv_ops.rwkv6_chunk(*args)
@@ -432,6 +468,8 @@ def rwkv_kernel_entry(dev: torch.device) -> dict:
         torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-5)
         torch.testing.assert_close(s1, s1_ref, rtol=1e-4, atol=1e-5)
         errs[name] = max(float((y - y_ref).abs().max()), float((s1 - s1_ref).abs().max()))
+    info = rwkv_ops.kernel_info()
+    sass = _sass_counts("rwkv6_chunk")
     args = cases["prefill shape"]
     y, s1 = rwkv_ops.rwkv6_chunk(*args)
     n_bytes = _nbytes(*args, y, s1)
@@ -443,8 +481,9 @@ def rwkv_kernel_entry(dev: torch.device) -> dict:
         "source": "src/repro_torch/kernels/rwkv6/csrc/rwkv6_chunk.cu",
         "replaces": "src/repro/kernels/rwkv6/rwkv6.py:23",
         "max_abs_err": errs["prefill shape"],
-        "max_abs_err_deep_decay": errs["deep decay"],
-        "max_abs_err_tail_chunk": errs["tail chunk T=8"],
+        "max_abs_err_cases": errs,
+        **{f"kernel_{k}": v for k, v in info.items()},
+        "sass_counts": sass,
         "ms": time_ms(lambda: rwkv_ops.rwkv6_chunk(*args)),
         "plain_ms": time_ms(lambda: rwkv_ops.rwkv6_chunk_ref(*args), repeats=10, inner=5),
         "device_ms": device_ms(lambda: rwkv_ops.rwkv6_chunk(*args), "rwkv6_chunk_kernel"),
@@ -457,9 +496,12 @@ def rwkv_kernel_entry(dev: torch.device) -> dict:
         "shape": f"r/k/v/log_w [{LM_BATCH},{cfg.ssm_chunk},{h},{p}] f32, u [{h},{p}], "
                  f"s0 [{LM_BATCH},{h},{p},{p}] f32",
     }
+    cases_txt = ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+    log(f"rwkv6_chunk: {info['registers']} registers, {info['local_bytes']} local (spill) bytes "
+        f"per thread, {info['shared_bytes']} shared bytes and {info['blocks_per_sm']} blocks per SM; "
+        f"SASS {sass}")
     log(f"rwkv6_chunk: within allclose(rtol=1e-4, atol=1e-5) of the plain version; max_abs_err "
-        f"{entry['max_abs_err']:.3g} (deep decay {entry['max_abs_err_deep_decay']:.3g}, tail chunk "
-        f"{entry['max_abs_err_tail_chunk']:.3g}); {entry['ms'] * 1e3:.2f} us/call (kernel on the "
+        f"{cases_txt}; {entry['ms'] * 1e3:.2f} us/call (kernel on the "
         f"device {entry['device_ms']} ms), plain {entry['plain_ms'] * 1e3:.2f} us, bound "
         f"{bound_ms * 1e3:.3f} us ({bound_by}; {n_bytes} bytes, {flops} flops + {exps} exp)")
     return entry

@@ -276,6 +276,12 @@ class EventEngine:
         leading axis than the spike state, first axis of length ``T``) is
         stepped alongside ``input_events``. Anything of the spike state's
         rank or below is a per-step constant.
+
+        Over zero steps the carry comes back as it was, with empty stacks
+        ``[0, ...]`` of each output's per-step shape and dtype, as
+        ``repro``'s ``lax.scan`` returns them. Those shapes are read off one
+        step taken on zero input and discarded (a step never updates the
+        carry it is given), so on the card that step launches its kernels.
         """
         t_steps = input_events.shape[0]
         i_shape = () if i_ext is None else tuple(np.shape(i_ext))
@@ -286,12 +292,15 @@ class EventEngine:
                 carry, input_events[t], i_ext[t] if time_varying else i_ext
             )
             outs.append(out)
+        if t_steps == 0:
+            zeros = torch.zeros(tuple(input_events.shape[1:]), dtype=carry[1].dtype)
+            outs.append(self.step(carry, zeros, None if time_varying else i_ext)[1])
         if self.queue_capacity is None and self.fabric_backend is None:
-            return carry, torch.stack(outs)
-        spikes = torch.stack([s for s, _ in outs])
+            return carry, torch.stack(outs)[:t_steps]
+        spikes = torch.stack([s for s, _ in outs])[:t_steps]
         stats = DeliveryStats(**{
             f.name: None if getattr(outs[0][1], f.name) is None
-            else torch.stack([getattr(st, f.name) for _, st in outs])
+            else torch.stack([getattr(st, f.name) for _, st in outs])[:t_steps]
             for f in dataclasses.fields(DeliveryStats)
         })
         return carry, (spikes, stats)

@@ -22,7 +22,9 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "build_all", "build_dir", "check_status", "library", "sources"]
+__all__ = [
+    "NVCC_FLAGS", "build_all", "build_dir", "check_status", "library", "library_path", "sources",
+]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,6 +48,11 @@ def _library_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def library_path(name: str) -> Path:
+    """Where the library of kernel source ``name`` is built."""
+    return _library_path(sources()[name])
 
 
 def _nvcc() -> str:

@@ -21,7 +21,9 @@ import torch
 from repro_torch.kernels._build import check_status, library, require
 from repro_torch.kernels.rwkv6.ref import rwkv6_chunk_ref
 
-__all__ = ["MAX_CHUNK", "MAX_HEAD_DIM", "rwkv6_chunk", "rwkv6_chunk_ref", "shared_bytes"]
+__all__ = [
+    "MAX_CHUNK", "MAX_HEAD_DIM", "kernel_info", "rwkv6_chunk", "rwkv6_chunk_ref", "shared_bytes",
+]
 
 MAX_CHUNK = 64  # T: the kernel's a-matrix and its tiles are sized for at most 64
 MAX_HEAD_DIM = 64  # P
@@ -37,6 +39,7 @@ def _launcher():
     return fn
 
 
+@functools.cache
 def shared_bytes(t: int, p: int) -> int:
     """Bytes of shared memory one block of the kernel takes at chunk length
     ``t`` and head size ``p`` (the library's own count)."""
@@ -44,6 +47,20 @@ def shared_bytes(t: int, p: int) -> int:
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_longlong
     return int(fn(t, p))
+
+
+def kernel_info() -> dict[str, int]:
+    """The compiled kernel on the current card: registers and local (spill)
+    bytes per thread, shared bytes per block, and the blocks that fit on one
+    SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    fn = library("rwkv6_chunk").rwkv6_chunk_kernel_info
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    regs, local, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    check_status(library("rwkv6_chunk"), fn(ctypes.byref(regs), ctypes.byref(local),
+                                            ctypes.byref(blocks)), "rwkv6_chunk_kernel_info")
+    return {"registers": regs.value, "local_bytes": local.value,
+            "shared_bytes": shared_bytes(MAX_CHUNK, MAX_HEAD_DIM), "blocks_per_sm": blocks.value}
 
 
 @functools.cache

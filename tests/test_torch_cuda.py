@@ -304,8 +304,14 @@ def _rwkv_inputs(dev, b, t, h, p, decay, seed, chunks=1):
                for _ in range(3))
     if decay == "deep":  # log_w at its floor, -e: cum reaches -e * T
         lw = torch.full(shape, -np.e, dtype=torch.float32, device=dev)
+    elif decay == "extreme":  # -exp(U[-20, 4.5]): down to -90 per token, cum to about -300
+        lw = -torch.as_tensor(np.exp(rng.uniform(-20.0, 4.5, size=shape)).astype(np.float32),
+                              device=dev)
     else:
         lw = -torch.as_tensor(rng.uniform(0.01, 1.0, size=shape).astype(np.float32), device=dev)
+    if decay == "padded":  # the chunked core's padded tail: r = k = v = 0, log_w = 0
+        for x in (r, k, v, lw):
+            x[:, -(t // 3):] = 0.0
     u = torch.as_tensor(rng.normal(size=(h, p)).astype(np.float32) * 0.1, device=dev)
     s0 = torch.as_tensor(rng.normal(size=(b, h, p, p)).astype(np.float32) * 0.2, device=dev)
     last = [x.reshape(b, chunks, t, h, p)[:, -1] for x in (r, k, v, lw)]
@@ -316,10 +322,15 @@ def _rwkv_inputs(dev, b, t, h, p, decay, seed, chunks=1):
     "b,t,h,p,decay,chunks",
     [
         (2, 8, 4, 12, "uniform", 1),  # the rwkv6-3b smoke config's chunk
+        (2, 5, 3, 10, "uniform", 1),  # P not a multiple of 4: 4-byte copies
         (8, 64, 40, 64, "uniform", 1),  # rwkv6-3b at B = 8
         (8, 64, 40, 64, "deep", 1),  # log_w = -e everywhere
         (8, 8, 40, 64, "uniform", 1),  # a short tail chunk
         (3, 64, 4, 64, "uniform", 3),  # a chunk sliced out of a sequence
+        (8, 17, 40, 64, "uniform", 1),  # a ragged last sub-chunk of one token
+        (8, 37, 40, 64, "uniform", 1),  # a ragged last sub-chunk of five tokens
+        (8, 64, 40, 64, "extreme", 1),  # decays down to -90 per token
+        (8, 64, 40, 64, "padded", 1),  # a tail of 21 padding tokens
     ],
 )
 def test_cuda_rwkv6_chunk_matches_plain(cuda, b, t, h, p, decay, chunks):
@@ -333,6 +344,15 @@ def test_cuda_rwkv6_chunk_matches_plain(cuda, b, t, h, p, decay, chunks):
     assert torch.isfinite(y).all() and torch.isfinite(s1).all()
     torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(s1, s1_ref, rtol=1e-4, atol=1e-5)
+
+
+def test_cuda_rwkv6_chunk_fits_two_blocks_per_sm(cuda):
+    """At least two blocks on an SM (the kernel is sized for three); the
+    library reports its registers and spill bytes beside."""
+    info = rwkv_ops.kernel_info()
+    assert info["blocks_per_sm"] >= 2, info
+    assert 0 < info["registers"] <= 255 and info["local_bytes"] >= 0, info
+    assert info["shared_bytes"] == rwkv_ops.shared_bytes(64, 64)
 
 
 def test_cuda_rwkv6_chunk_raises_on_bad_arguments(cuda):
