@@ -12,9 +12,14 @@ Phases, each of which fails the run on any error:
      random floats (atomics and per-type sums add in another order); then
      timed with CUDA events (median of 60 repeats of 20 calls, after
      warm-up) beside the plain version, with the kernel's own device time
-     from torch.profiler. ``fabric_deliver`` is also carried over
-     2*(max_delay+1)+1 steps on a geometry with max_delay = 2 and link
-     capacity 2, where the kernel and plain legs must carry equal rings;
+     from torch.profiler. ``fused_deliver`` is also held at 0% and 100%
+     activity and at 100% into a queue of 64 slots (drops), and one call
+     must run exactly one device operation; ``fabric_deliver`` at 0%, 10%
+     and 100% of its entries carrying weight, at both cursors, and carried
+     over 2*(max_delay+1)+1 steps on a geometry with max_delay = 2 and link
+     capacity 2, where the kernel and plain legs must carry equal rings. The
+     registers, spills, shared bytes and blocks per SM of both delivery
+     kernels are logged;
   3. the serving path: the offline-Hebbian calibration run, then a pool of
      32 slots serving 64 poker-DVS sessions (seed 7, 16 events per step)
      once per backend (fused, cuda, reference, and the fabric with its
@@ -225,53 +230,7 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
         "shape": f"activity [{POOL},{nc},{k}] f32, cam [{t.n_neurons},{t.cam_tag.shape[1]}] i32",
     }
 
-    # -- fused_deliver: queue + ext [B, nc, K] -> [B, N, 4] drive ---------
-    # 10% of neurons spiking: the queue (capacity N, as the pool sizes it)
-    # holds every active source, so Q*E = 1536*16 entries per slot reach
-    # the kernel
-    active = torch.rand((POOL, t.n_neurons), generator=gen, device=dev) < 0.1
-    spikes_int = active.float()
-    spikes_flt = active * torch.rand((POOL, t.n_neurons), generator=gen, device=dev)
-    ext_int = torch.randint(0, 3, (POOL, nc, k), generator=gen, device=dev).float() * 8.0
-    ext_flt = torch.rand((POOL, nc, k), generator=gen, device=dev)
-    q_int = compact_events(spikes_int, t.n_neurons)
-    q_flt = compact_events(spikes_flt, t.n_neurons)
-    tabs = (src_tag, src_dest, cam_tag, cam_syn)
-    got_int = fused_ops.fused_deliver(q_int, *tabs, cs, k, external_activity=ext_int)
-    got_flt = fused_ops.fused_deliver(q_flt, *tabs, cs, k, external_activity=ext_flt)
-    torch.cuda.synchronize()
-    ref_int = fused_ops.fused_deliver_ref(q_int, *tabs, cs, k, external_activity=ext_int)
-    ref_flt = fused_ops.fused_deliver_ref(q_flt, *tabs, cs, k, external_activity=ext_flt)
-    if not torch.equal(got_int, ref_int):
-        raise AssertionError(
-            f"fused_deliver not bit-exact on integer inputs: max err {(got_int - ref_int).abs().max()}"
-        )
-    torch.testing.assert_close(got_flt, ref_flt, rtol=1e-6, atol=1e-6)
-    ev_flat, _ = fused_ops._event_entries_flat(q_flt, src_tag, src_dest, k)
-    n_bytes = _nbytes(q_flt.src, q_flt.weight, src_tag, src_dest, ext_flt, cam_tag, cam_syn, got_flt)
-    bound_ms, bound_by = _bound(n_bytes, int((ev_flat >= 0).sum()) + POOL * valid_words)
-    out["fused_deliver"] = {
-        "name": "fused_deliver",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/fused_deliver/csrc/fused_deliver.cu",
-        "replaces": "src/repro/kernels/fused_deliver/fused_deliver.py:42",
-        "max_abs_err": float((got_flt - ref_flt).abs().max()),
-        "max_abs_err_integer_inputs": float((got_int - ref_int).abs().max()),
-        "ms": time_ms(lambda: fused_ops.fused_deliver(q_flt, *tabs, cs, k, external_activity=ext_flt)),
-        "plain_ms": time_ms(
-            lambda: fused_ops.fused_deliver_ref(q_flt, *tabs, cs, k, external_activity=ext_flt)
-        ),
-        "device_ms": device_ms(
-            lambda: fused_ops.fused_deliver(q_flt, *tabs, cs, k, external_activity=ext_flt),
-            "fused_deliver_kernel",
-        ),
-        "bytes": n_bytes,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes queue -> drive
-        "shape": f"queue [{POOL},{t.n_neurons}] -> entries [{POOL},{ev_flat.shape[-1]}], "
-                 f"ext [{POOL},{nc},{k}] f32",
-    }
+    out["fused_deliver"] = fused_kernel_entry(dev, t, (src_tag, src_dest, cam_tag, cam_syn), gen)
     out["fabric_deliver"] = fabric_kernel_entry(dev, t, cam_tag, cam_syn, gen)
     check_fabric_wrap(dev)
     for v in out.values():
@@ -281,6 +240,107 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
             f"{v['plain_ms'] * 1e3:.2f} us, bound {v['bound_ms'] * 1e3:.3f} us ({v['bound_by']})")
     out["rwkv6_chunk"] = rwkv_kernel_entry(dev)
     return out
+
+
+def _device_ops_per_call(fn) -> list[str]:
+    """The names of the device operations one call of ``fn`` runs (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _log_kernel_info(name: str, info: dict, split) -> None:
+    if info["shared_bytes"] != split.shared_bytes:
+        raise AssertionError(f"{name}: the library gives a block {info['shared_bytes']} shared "
+                             f"bytes, the wrapper counts {split.shared_bytes}")
+    log(f"{name}: {info['registers']} registers, {info['local_bytes']} local (spill) bytes per "
+        f"thread, {info['shared_bytes']} shared bytes and {info['blocks_per_sm']} blocks per SM "
+        f"at the serving split {split}")
+
+
+def fused_kernel_entry(dev, t, tabs, gen) -> dict:
+    """``fused_deliver`` at the serving shape: queue [B, N] (capacity N, as
+    the pool sizes it) + ext [B, nc, K] -> drive [B, N, 4], with 10% of the
+    neurons spiking (the timed case), and at 0% and 100% activity and 100%
+    into a queue of 64 slots (drops); each held against the plain version
+    with and without ext. One call must put exactly one operation on the
+    device: the SRAM gather is inside the kernel."""
+    nc, k, cs, n = t.n_clusters, t.k_tags, t.cluster_size, t.n_neurons
+    src_tag, _, cam_tag, _ = tabs
+    valid_words = int((cam_tag >= 0).sum())
+    cases = {}
+    for name, act, cap in (("10% activity", 0.1, n), ("0% activity", 0.0, n),
+                           ("100% activity", 1.0, n), ("100% activity, queue of 64", 1.0, 64)):
+        active = torch.rand((POOL, n), generator=gen, device=dev) < act
+        spikes_int = active.float()
+        spikes_flt = active * torch.rand((POOL, n), generator=gen, device=dev)
+        ext_int = torch.randint(0, 3, (POOL, nc, k), generator=gen, device=dev).float() * 8.0
+        ext_flt = torch.rand((POOL, nc, k), generator=gen, device=dev)
+        q_int, q_flt = compact_events(spikes_int, cap), compact_events(spikes_flt, cap)
+        errs = []
+        for q, ext, integer in ((q_int, ext_int, True), (q_flt, ext_flt, False)):
+            for e in (ext, None):
+                got = fused_ops.fused_deliver(q, *tabs, cs, k, external_activity=e)
+                torch.cuda.synchronize()
+                ref = fused_ops.fused_deliver_ref(q, *tabs, cs, k, external_activity=e)
+                if integer and not torch.equal(got, ref):
+                    raise AssertionError(f"fused_deliver not bit-exact on integer inputs at "
+                                         f"{name}: max err {(got - ref).abs().max()}")
+                torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+                errs.append(float((got - ref).abs().max()))
+        cases[name] = {
+            "max_abs_err": max(errs[2:]), "max_abs_err_integer_inputs": max(errs[:2]),
+            "dropped": int(q_int.dropped.sum()),
+            "device_ms": device_ms(lambda: fused_ops.fused_deliver(
+                q_flt, *tabs, cs, k, external_activity=ext_flt), "fused_deliver_kernel"),
+        }
+        if name == "10% activity":
+            q10, ext10, drive10 = q_flt, ext_flt, got
+    if cases["100% activity, queue of 64"]["dropped"] == 0:
+        raise AssertionError("fused_deliver: the queue of 64 slots dropped no event")
+    q, ext = q10, ext10
+    call = lambda: fused_ops.fused_deliver(q, *tabs, cs, k, external_activity=ext)  # noqa: E731
+    ops = _device_ops_per_call(call)
+    if len(ops) != 1 or "fused_deliver_kernel" not in ops[0]:
+        raise AssertionError(f"one fused_deliver call ran {len(ops)} device operations: {ops}")
+    split = fused_ops.work_split(POOL, n, cs, k)
+    info = fused_ops.kernel_info(split, k)
+    _log_kernel_info("fused_deliver", info, split)
+    live = q.src >= 0
+    rows = src_tag[q.src.clamp(min=0).long()]  # [B, Q, E] SRAM rows of the queued events
+    entries = int(((rows >= 0) & live[..., None]).sum())
+    n_bytes = _nbytes(q.src, q.weight, *tabs, ext, drive10)
+    bound_ms, bound_by = _bound(n_bytes, entries + POOL * valid_words)
+    log("fused_deliver: " + "; ".join(
+        f"{name}: device {c['device_ms']} ms, max_abs_err {c['max_abs_err']:.3g}"
+        + (f", {c['dropped']} dropped" if c["dropped"] else "") for name, c in cases.items()))
+    return {
+        "name": "fused_deliver",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/fused_deliver/csrc/fused_deliver.cu",
+        "replaces": "src/repro/kernels/fused_deliver/fused_deliver.py:42",
+        "max_abs_err": cases["10% activity"]["max_abs_err"],
+        "max_abs_err_integer_inputs": max(c["max_abs_err_integer_inputs"] for c in cases.values()),
+        "ms": time_ms(call),
+        "plain_ms": time_ms(lambda: fused_ops.fused_deliver_ref(q, *tabs, cs, k,
+                                                                external_activity=ext)),
+        "device_ms": cases["10% activity"]["device_ms"],
+        "device_ops_per_call": len(ops),
+        "cases": cases,
+        **{f"kernel_{key}": v for key, v in info.items()},
+        "split": str(split),
+        "bytes": n_bytes,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call computes queue -> drive
+        "shape": f"queue [{POOL},{n}] (i32 src, f32 w), SRAM [{n},{src_tag.shape[1]}] i32 x2, "
+                 f"ext [{POOL},{nc},{k}] f32, cam [{n},{cam_tag.shape[1]}] i32 x2",
+    }
 
 
 def fabric_kernel_entry(dev, t, cam_tag, cam_syn, gen) -> dict:
@@ -295,33 +355,44 @@ def fabric_kernel_entry(dev, t, cam_tag, cam_syn, gen) -> dict:
     m = entries.dstk.shape[0]
     if (m, d1) != (1280, 2):
         raise AssertionError(f"Table-V fabric entries {m} x ring slots {d1}, expected 1280 x 2")
-    w_int = (torch.rand((POOL, m), generator=gen, device=dev) < 0.1).float()
-    w_flt = w_int * torch.rand((POOL, m), generator=gen, device=dev)
+    ranges = {"cluster_start": entries.cluster_start, "cluster_order": entries.cluster_order}
     ring_int = torch.randint(0, 3, (POOL, d1, nc, k), generator=gen, device=dev).float()
     ring_flt = torch.rand((POOL, d1, nc, k), generator=gen, device=dev)
     ext_int = torch.randint(0, 3, (POOL, nc, k), generator=gen, device=dev).float() * 8.0
     ext_flt = torch.rand((POOL, nc, k), generator=gen, device=dev)
     errs_int, errs_flt = [], []
-    for cursor in range(d1):
-        cur = torch.tensor(cursor, dtype=torch.int32, device=dev)
-        for w, ring, ext, errs in ((w_int, ring_int, ext_int, errs_int),
-                                   (w_flt, ring_flt, ext_flt, errs_flt)):
-            args = (entries.dstk, entries.delay, w, ring, cur, ext, cam_tag, cam_syn, cs, k)
-            drive, new_ring = fabric_ops.fabric_deliver(*args)
-            torch.cuda.synchronize()
-            p_drive, p_ring = fabric_ops.fabric_deliver_ref(*args)
-            errs.append(max(float((drive - p_drive).abs().max()),
-                            float((new_ring - p_ring).abs().max())))
-            if w is w_int and not (torch.equal(drive, p_drive) and torch.equal(new_ring, p_ring)):
-                raise AssertionError(f"fabric_deliver not bit-exact on integer inputs: {errs[-1]}")
-            torch.testing.assert_close(drive, p_drive, rtol=1e-6, atol=1e-6)
-            torch.testing.assert_close(new_ring, p_ring, rtol=1e-6, atol=1e-6)
+    for share in (0.1, 0.0, 1.0):  # entries carrying weight: the timed case first
+        carries = (torch.rand((POOL, m), generator=gen, device=dev) < share).float()
+        w_int = carries
+        w_flt = carries * torch.rand((POOL, m), generator=gen, device=dev)
+        if share == 0.1:
+            w_timed = w_flt
+        for cursor in range(d1):
+            cur = torch.tensor(cursor, dtype=torch.int32, device=dev)
+            for w, ring, ext, errs in ((w_int, ring_int, ext_int, errs_int),
+                                       (w_flt, ring_flt, ext_flt, errs_flt)):
+                args = (entries.dstk, entries.delay, w, ring, cur, ext, cam_tag, cam_syn, cs, k)
+                drive, new_ring = fabric_ops.fabric_deliver(*args, **ranges)
+                torch.cuda.synchronize()
+                p_drive, p_ring = fabric_ops.fabric_deliver_ref(*args)
+                errs.append(max(float((drive - p_drive).abs().max()),
+                                float((new_ring - p_ring).abs().max())))
+                if w is w_int and not (torch.equal(drive, p_drive)
+                                       and torch.equal(new_ring, p_ring)):
+                    raise AssertionError(
+                        f"fabric_deliver not bit-exact on integer inputs: {errs[-1]}")
+                torch.testing.assert_close(drive, p_drive, rtol=1e-6, atol=1e-6)
+                torch.testing.assert_close(new_ring, p_ring, rtol=1e-6, atol=1e-6)
     cur = torch.tensor(0, dtype=torch.int32, device=dev)
+    w_flt = w_timed
     args = (entries.dstk, entries.delay, w_flt, ring_flt, cur, ext_flt, cam_tag, cam_syn, cs, k)
-    drive, new_ring = fabric_ops.fabric_deliver(*args)
+    drive, new_ring = fabric_ops.fabric_deliver(*args, **ranges)
+    split = fabric_ops.work_split(POOL, cs, k, d1)
+    info = fabric_ops.kernel_info(split, k, d1)
+    _log_kernel_info("fabric_deliver", info, split)
     valid_words = int((cam_tag >= 0).sum())
-    n_bytes = _nbytes(entries.dstk, entries.delay, w_flt, ring_flt, cur, ext_flt, cam_tag,
-                      cam_syn, drive, new_ring)
+    n_bytes = _nbytes(entries.dstk, entries.delay, entries.cluster_start, entries.cluster_order,
+                      w_flt, ring_flt, cur, ext_flt, cam_tag, cam_syn, drive, new_ring)
     # one add per entry carrying weight, per arrival cell (+ ext), per valid CAM word
     n_ops = int((w_flt != 0).sum()) + POOL * nc * k + POOL * valid_words
     bound_ms, bound_by = _bound(n_bytes, n_ops)
@@ -332,9 +403,12 @@ def fabric_kernel_entry(dev, t, cam_tag, cam_syn, gen) -> dict:
         "replaces": "src/repro/kernels/fabric_deliver/fabric_deliver.py:52",
         "max_abs_err": max(errs_flt),
         "max_abs_err_integer_inputs": max(errs_int),
-        "ms": time_ms(lambda: fabric_ops.fabric_deliver(*args)),
+        "ms": time_ms(lambda: fabric_ops.fabric_deliver(*args, **ranges)),
         "plain_ms": time_ms(lambda: fabric_ops.fabric_deliver_ref(*args)),
-        "device_ms": device_ms(lambda: fabric_ops.fabric_deliver(*args), "fabric_deliver_kernel"),
+        "device_ms": device_ms(lambda: fabric_ops.fabric_deliver(*args, **ranges),
+                               "fabric_deliver_kernel"),
+        **{f"kernel_{key}": v for key, v in info.items()},
+        "split": str(split),
         "bytes": n_bytes,
         "bound_ms": bound_ms,
         "bound_by": bound_by,

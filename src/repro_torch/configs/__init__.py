@@ -2,7 +2,7 @@
 
 ``ARCHS`` names the ten architectures of ``repro.configs``. The port builds
 the blocks of one of them so far, ``rwkv6-3b``; asking for another raises
-``NotImplementedError`` (ROADMAP queue 1 item 12).
+``NotImplementedError`` (ROADMAP queue 1, 'LM remainder').
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if module is None:
         raise NotImplementedError(
             f"{arch}: its block kinds are not ported to repro_torch yet "
-            "(ROADMAP queue 1 item 12); only rwkv6-3b is"
+            "(ROADMAP queue 1, 'LM remainder'); only rwkv6-3b is"
         )
     mod = importlib.import_module(module)
     return mod.smoke() if smoke else mod.config()

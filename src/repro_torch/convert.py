@@ -115,7 +115,7 @@ def lm_params_from_numpy(cfg, tree, device: torch.device | str = "cuda") -> dict
         else:
             raise NotImplementedError(
                 f"parameter {'/'.join(path)} belongs to a part of the model that is not "
-                "ported to repro_torch yet (ROADMAP queue 1 item 12)"
+                "ported to repro_torch yet (ROADMAP queue 1, 'LM remainder')"
             )
     return out
 

@@ -306,8 +306,8 @@ class FabricBackend(DispatchBackend):
     ):
         if faults is not None:
             raise NotImplementedError(
-                "fault injection (FaultSpec) is not ported yet; it comes with "
-                "the faults slice of the port (ROADMAP queue 1 item 9)"
+                "fault injection (FaultSpec) is not ported yet; it comes with the "
+                "faults slice of the port (ROADMAP queue 1, 'Faults and recovery')"
             )
         self.fabric = fabric if fabric is not None else routing.Fabric()
         self.tile_of_cluster = tile_of_cluster

@@ -310,13 +310,13 @@ def build_delivery_model(
     physical XY link sharing is not modeled).
 
     ``faults`` must be ``None``: topology faults (``FaultSpec``) come with
-    the faults slice of the port (ROADMAP queue 1 item 9) and raise
-    ``NotImplementedError`` here.
+    the faults slice of the port (ROADMAP queue 1, 'Faults and recovery')
+    and raise ``NotImplementedError`` here.
     """
     if faults is not None:
         raise NotImplementedError(
             "fault injection (FaultSpec) is not ported yet; it comes with the "
-            "faults slice of the port (ROADMAP queue 1 item 9)"
+            "faults slice of the port (ROADMAP queue 1, 'Faults and recovery')"
         )
     if dt <= 0:
         raise ValueError(f"dt must be positive, got {dt}")

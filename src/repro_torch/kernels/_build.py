@@ -3,8 +3,10 @@
 Every ``kernels/*/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into its own shared library with a plain C interface, under
 ``build/kernels/`` at the repository root, and loaded with ``ctypes``. Each
-library's file name carries a hash of its source and the flags, so an edit
-rebuilds it at first use and an unchanged source is loaded as it is. All
+library's file name carries a hash of its source, of the shared headers
+(``kernels/*/*.cuh``, which sources include by relative path) and of the
+flags, so an edit rebuilds it at first use and an unchanged source is
+loaded as it is. All
 missing libraries are built at once, one ``nvcc`` per source, in parallel.
 
 Nothing is built or loaded at import: the first :func:`library` call does
@@ -13,6 +15,7 @@ it, on a machine with the CUDA toolkit.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -23,7 +26,8 @@ import time
 from pathlib import Path
 
 __all__ = [
-    "NVCC_FLAGS", "build_all", "build_dir", "check_status", "library", "library_path", "sources",
+    "NVCC_FLAGS", "build_all", "build_dir", "check_status", "device_scope", "headers", "library",
+    "library_path", "sources",
 ]
 
 NVCC_FLAGS = (
@@ -44,8 +48,15 @@ def sources() -> dict[str, Path]:
     return {p.stem: p for p in sorted(_KERNELS_DIR.glob("*/csrc/*.cu"))}
 
 
+def headers() -> list[Path]:
+    """The headers the kernel sources share (``kernels/*/*.cuh``)."""
+    return sorted(_KERNELS_DIR.glob("*/*.cuh"))
+
+
 def _library_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in headers():
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
@@ -110,6 +121,16 @@ def library(name: str) -> ctypes.CDLL:
     if not lib_path.exists():
         build_all()
     return ctypes.CDLL(str(lib_path))
+
+
+def device_scope(device):
+    """A context in which ``device`` is the current CUDA device: nothing to
+    do when it already is (the common case, and the cheaper one)."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check_status(lib: ctypes.CDLL, status: int, kernel: str) -> None:

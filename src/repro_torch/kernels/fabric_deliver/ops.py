@@ -23,6 +23,11 @@ Table II-IV per-event figures, statically sorted in **arbitration order**
     ``kernel=False``, take the plain version
     (:func:`~repro_torch.kernels.fabric_deliver.ref.fabric_deliver_ref`).
 
+The table also carries, for the kernel, each destination cluster's own
+entries (:func:`entry_cluster_ranges`): the kernel's block of cluster ``c``
+walks ``cluster_order[cluster_start[c]:cluster_start[c + 1]]`` and no other
+entry.
+
 ``fabric_deliver.launches`` counts kernel launches.
 """
 
@@ -39,14 +44,19 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dispatch import DeliveryStats
 from repro_torch.core.two_stage import N_SYN_TYPES, _scatter_count
-from repro_torch.kernels._build import check_status, library, require
+from repro_torch.kernels import _split
+from repro_torch.kernels._build import check_status, device_scope, library, require
 from repro_torch.kernels.fabric_deliver.ref import fabric_deliver_ref
 
 __all__ = [
     "FabricEntries",
+    "WorkSplit",
     "build_fabric_entries",
+    "entry_cluster_ranges",
     "fabric_deliver",
     "fabric_deliver_ring",
+    "kernel_info",
+    "work_split",
 ]
 
 
@@ -61,7 +71,12 @@ class FabricEntries:
     active entry's FIFO position is a prefix-count difference. ``valid`` is
     ``False`` only on the single pad row of an entry-less table. ``alive``
     is all ``True``: statically severed entries come with fault injection
-    (ROADMAP queue 1 item 9).
+    (ROADMAP queue 1, 'Faults and recovery').
+
+    ``cluster_start [n_clusters + 1]`` and ``cluster_order [M]`` group the
+    rows by destination cluster (:func:`entry_cluster_ranges`): the rows of
+    cluster ``c`` are ``cluster_order[cluster_start[c]:cluster_start[c + 1]]``,
+    in arbitration order.
     """
 
     src: torch.Tensor  # [M] int32 source neuron id
@@ -78,12 +93,38 @@ class FabricEntries:
     energy_j: torch.Tensor  # [M] float32 per-event energy (Table III/IV)
     valid: torch.Tensor  # [M] bool
     alive: torch.Tensor  # [M] bool
+    cluster_start: torch.Tensor  # [n_clusters + 1] int32 offsets into cluster_order
+    cluster_order: torch.Tensor  # [M] int32 row ids grouped by destination cluster
 
 
 _COLUMNS = tuple(f.name for f in dataclasses.fields(FabricEntries))
 
 
-def _to_device(cols: dict[str, np.ndarray], device) -> FabricEntries:
+def entry_cluster_ranges(
+    dstk: torch.Tensor, n_clusters: int, k_tags: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each destination cluster's own entries: ``(cluster_start [nc + 1],
+    cluster_order [M])``, int32, on ``dstk``'s device.
+
+    Entry ``m`` belongs to cluster ``dstk[m] // K``; ``cluster_order`` lists
+    the entry ids cluster by cluster, each cluster's in ascending
+    (arbitration) order, and cluster ``c``'s run is ``cluster_order[
+    cluster_start[c]:cluster_start[c + 1]]``. An entry whose cluster lies
+    outside ``[0, n_clusters)`` is in no run (it is listed after the last
+    one): no cluster's activity row holds its address.
+    """
+    cl = torch.div(dstk.long(), k_tags, rounding_mode="floor")
+    key = torch.where((cl >= 0) & (cl < n_clusters), cl, n_clusters)
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=n_clusters + 1)[:n_clusters]
+    start = torch.zeros(n_clusters + 1, dtype=torch.int64, device=dstk.device)
+    start[1:] = torch.cumsum(counts, 0)
+    return start.to(torch.int32), order.to(torch.int32)
+
+
+def _to_device(cols: dict[str, np.ndarray], device, n_clusters: int, k_tags: int) -> FabricEntries:
+    start, order = entry_cluster_ranges(torch.as_tensor(cols["dstk"]), n_clusters, k_tags)
+    cols = {**cols, "cluster_start": start, "cluster_order": order}
     dev = resolve_device(device)
     return FabricEntries(**{k: torch.as_tensor(cols[k], device=dev) for k in _COLUMNS})
 
@@ -103,11 +144,12 @@ def build_fabric_entries(
     n_clusters = np.asarray(model.tile_of_cluster).shape[0]
     src_ids, e_ids = np.nonzero(src_tag >= 0)
     if src_ids.size == 0:  # entry-less table: one inert pad row
-        return _to_device(_pad_entries(), device)
+        return _to_device(_pad_entries(), device, n_clusters, k_tags)
     tag = src_tag[src_ids, e_ids].astype(np.int64)
     dst = np.clip(src_dest[src_ids, e_ids], 0, n_clusters - 1).astype(np.int64)
     return _to_device(
-        _entries_from_raw(src_ids, e_ids, tag, dst, cluster_size, k_tags, model), device
+        _entries_from_raw(src_ids, e_ids, tag, dst, cluster_size, k_tags, model), device,
+        n_clusters, k_tags,
     )
 
 
@@ -172,10 +214,40 @@ def _count_bins(mask: torch.Tensor, bins: torch.Tensor, size: int) -> torch.Tens
 # ---------------------------------------------------------------------------
 # the kernel's wrapper
 # ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class WorkSplit:
+    """How one call is cut into blocks (see ``kernels/_split.py``):
+    ``batch_tile`` batch elements per block, ``parts`` blocks per
+    (cluster, tile), each with a k-slice of ``ceil(K / parts)`` cells of every
+    ring slot and a part of the neurons."""
+
+    batch_tile: int
+    parts: int
+    shared_bytes: int
+
+
+def shared_bytes(batch_tile: int, k_tags: int, d1: int, parts: int) -> int:
+    """Dynamic shared bytes of one block: the arrival rows (K + 1 floats
+    each) and the block's k-slice of the D1 slots, per batch element."""
+    return 4 * batch_tile * ((k_tags + 1) + d1 * math.ceil(k_tags / parts))
+
+
+@functools.cache
+def work_split(
+    batch: int, cluster_size: int, k_tags: int, d1: int,
+    limit: int = _split.SHARED_OPTIN_H100,
+) -> WorkSplit:
+    parts = _split.parts_for(cluster_size)
+    tile = _split.fit_batch_tile(
+        batch, lambda t: shared_bytes(t, k_tags, d1, parts), limit, "fabric_deliver"
+    )
+    return WorkSplit(tile, parts, shared_bytes(tile, k_tags, d1, parts))
+
+
 @functools.cache
 def _launcher():
     fn = library("fabric_deliver").fabric_deliver_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -192,6 +264,22 @@ def _shared_memory_limit(device_index: int) -> int:
     return limit
 
 
+def kernel_info(split: WorkSplit, k_tags: int, d1: int) -> dict[str, int]:
+    """The compiled kernel for ``split`` at ``k_tags`` and ``d1`` ring slots
+    on the current card, with the int4 CAM reads of the Table-V shape:
+    registers and local (spill) bytes per thread, the dynamic shared bytes
+    the library gives a block, and the blocks that fit on one SM."""
+    lib = library("fabric_deliver")
+    fn = lib.fabric_deliver_kernel_info
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 4
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(4)]
+    check_status(lib, fn(split.batch_tile, k_tags, d1, split.parts,
+                         *(ctypes.byref(x) for x in out)), "fabric_deliver_kernel_info")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"),
+                    (x.value for x in out)))
+
+
 def fabric_deliver(
     dstk: torch.Tensor,  # [M] int32 flat dst_cluster * K + tag, batch-shared
     delay: torch.Tensor,  # [M] int32 arrival delay in steps
@@ -204,10 +292,17 @@ def fabric_deliver(
     cluster_size: int,
     k_tags: int,
     syn_onehot: torch.Tensor | None = None,  # plain version only
+    *,
+    cluster_start: torch.Tensor | None = None,  # [nc + 1] int32, FabricEntries'
+    cluster_order: torch.Tensor | None = None,  # [M] int32, FabricEntries'
 ) -> tuple[torch.Tensor, torch.Tensor]:  # (drive [..., N, 4], new ring)
     """Ring update + arrival pop + CAM match; the kernel on CUDA tensors.
 
-    Returns a new ring tensor; the ring passed in is not written.
+    Returns a new ring tensor; the ring passed in is not written. The
+    kernel walks each cluster's own entries through ``cluster_start`` /
+    ``cluster_order``, the static ranges of :class:`FabricEntries`; a caller
+    without them gets them from :func:`entry_cluster_ranges`, which costs a
+    few device operations per call.
     """
     dev = w.device
     if dev.type == "cpu":
@@ -233,6 +328,10 @@ def fabric_deliver(
     require(cursor, "cursor", torch.int32, dev, ())
     require(cam_tag, "cam_tag", torch.int32, dev, (n, s))
     require(cam_syn, "cam_syn", torch.int32, dev, (n, s))
+    if cluster_start is None or cluster_order is None:
+        cluster_start, cluster_order = entry_cluster_ranges(dstk, n_clusters, k_tags)
+    require(cluster_start, "cluster_start", torch.int32, dev, (n_clusters + 1,))
+    require(cluster_order, "cluster_order", torch.int32, dev, (m,))
     ext_ptr = None
     if external_activity is not None:
         external_activity = external_activity.expand(
@@ -240,23 +339,19 @@ def fabric_deliver(
         ).contiguous()
         require(external_activity, "external_activity", torch.float32, dev)
         ext_ptr = external_activity.data_ptr()
+    _split.check_int32("fabric_deliver", w=b * m, ring=b * d1 * n_clusters * k_tags,
+                       drive=b * n * N_SYN_TYPES, cam_tag=n * s)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
-    column_bytes = d1 * k_tags * 4
-    limit = _shared_memory_limit(index)
-    if column_bytes > limit:
-        raise ValueError(
-            f"fabric_deliver: a ring column of D1 x K = {d1} x {k_tags} floats "
-            f"({column_bytes} bytes) exceeds the {limit} bytes of shared memory "
-            "a block can hold on this card; the kernel has no fallback"
-        )
+    split = work_split(b, cluster_size, k_tags, d1, _shared_memory_limit(index))
     drive = torch.empty((*batch_shape, n, N_SYN_TYPES), dtype=torch.float32, device=dev)
     new_ring = torch.empty_like(ring)
-    with torch.cuda.device(dev):
+    with device_scope(dev):
         status = _launcher()(
             dstk.data_ptr(), delay.data_ptr(), w.data_ptr(), ring.data_ptr(),
             cursor.data_ptr(), ext_ptr, cam_tag.data_ptr(), cam_syn.data_ptr(),
-            drive.data_ptr(), new_ring.data_ptr(), b, n_clusters, cluster_size,
-            k_tags, s, d1, m, torch.cuda.current_stream(dev).cuda_stream,
+            cluster_start.data_ptr(), cluster_order.data_ptr(), drive.data_ptr(),
+            new_ring.data_ptr(), b, n_clusters, cluster_size, k_tags, s, d1, m,
+            split.batch_tile, split.parts, torch.cuda.current_stream(dev).cuda_stream,
         )
     check_status(library("fabric_deliver"), status, "fabric_deliver")
     fabric_deliver.launches += 1
@@ -358,9 +453,11 @@ def fabric_deliver_ring(
     # dropped and silent entries carry weight exactly 0 (adding 0.0 is the
     # no-op), so every entry keeps its static ring target
     w = torch.index_select(spikes, -1, entries.src) * kept.to(spikes.dtype)
-    deliver = fabric_deliver if kernel else fabric_deliver_ref
-    drive, ring = deliver(
-        entries.dstk, entries.delay, w, ring, cursor, external_activity, cam_tag,
-        cam_syn, cluster_size, k_tags, syn_onehot,
-    )
+    args = (entries.dstk, entries.delay, w, ring, cursor, external_activity, cam_tag,
+            cam_syn, cluster_size, k_tags, syn_onehot)
+    if kernel:
+        drive, ring = fabric_deliver(*args, cluster_start=entries.cluster_start,
+                                     cluster_order=entries.cluster_order)
+    else:
+        drive, ring = fabric_deliver_ref(*args)
     return drive, ring, (cursor + 1) % d1, stats

@@ -40,7 +40,8 @@ def main(argv: list[str] | None = None) -> torch.Tensor:
     args = ap.parse_args(argv)
     if args.ckpt_dir:
         raise NotImplementedError(
-            "--ckpt-dir: checkpoints are not ported to repro_torch yet (ROADMAP queue 1 item 9)"
+            "--ckpt-dir: checkpoints are not ported to repro_torch yet "
+            "(ROADMAP queue 1, 'Faults and recovery')"
         )
 
     cfg = get_config(args.arch, smoke=args.smoke)

@@ -8,8 +8,8 @@ Caches are a list with one dict per layer.
 
 Ported so far: blocks of kind ``rwkv6`` with a dense FFN. Other block kinds,
 ``shared`` blocks, ``post_block_norm`` and the ``prefix_layers``/``remainder``
-blocks raise ``NotImplementedError`` (ROADMAP queue 1 item 12), and so do
-cross-attention blocks (the model refuses encoders).
+blocks raise ``NotImplementedError`` (ROADMAP queue 1, 'LM remainder'), and
+so do cross-attention blocks (the model refuses encoders).
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from repro_torch.models.layers import MLP, RMSNorm
 
 __all__ = ["Block", "Stack", "check_ported"]
 
-_LATER = "is not ported to repro_torch yet (ROADMAP queue 1 item 12)"
+_LATER = "is not ported to repro_torch yet (ROADMAP queue 1, 'LM remainder')"
 
 
 def check_ported(cfg: ModelConfig) -> None:

@@ -12,7 +12,7 @@ a ``Model`` (an ``nn.Module`` holding its parameters) with
 through the ``rwkv6_chunk`` CUDA kernel on the card; ``rwkv_kernel=False``
 runs its plain version there instead (the yardstick). On the CPU both run
 the plain version. ``loss`` and ``cross_entropy`` come with the training
-slice (ROADMAP queue 1 item 12).
+slice (ROADMAP queue 1, 'LM remainder').
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ class Model(nn.Module):
         if cfg.n_enc_layers or cfg.mtp_depth or cfg.frontend != "none":
             raise NotImplementedError(
                 f"{cfg.name}: encoders, MTP and modality frontends are not ported to "
-                "repro_torch yet (ROADMAP queue 1 item 12)"
+                "repro_torch yet (ROADMAP queue 1, 'LM remainder')"
             )
         self.cfg = cfg
         self.rwkv_kernel = rwkv_kernel

@@ -59,14 +59,14 @@ def _cam_inputs(b, integer, seed, ncl=3, c=16, s=8, k=32):
     return act, tag, syn, c
 
 
-def _fused_inputs(b, integer, seed, ncl=3, c=16, s=8, k=32, e=4, cap=24):
+def _fused_inputs(b, integer, seed, ncl=3, c=16, s=8, k=32, e=4, cap=24, act=0.4):
     rng = np.random.default_rng(seed)
     n = ncl * c
     src_tag = rng.integers(-1, k, (n, e)).astype(np.int32)
     src_dest = rng.integers(0, ncl, (n, e)).astype(np.int32)
-    cam_tag = rng.integers(-1, k, (n, s)).astype(np.int32)
-    cam_syn = rng.integers(0, 4, (n, s)).astype(np.int32)
-    active = rng.random((b, n)) < 0.4
+    cam_tag = rng.integers(-1, k + 4, (n, s)).astype(np.int32)  # a few tags past K - 1
+    cam_syn = rng.integers(-1, 5, (n, s)).astype(np.int32)  # a few types outside [0, 4)
+    active = rng.random((b, n)) < act
     if integer:
         spikes = active.astype(np.float32)
         ext = rng.integers(0, 5, (b, ncl, k)).astype(np.float32) * 8.0
@@ -96,11 +96,37 @@ def test_cuda_cam_match_matches_plain(cuda, b, integer):
         torch.testing.assert_close(out, plain, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("b", [1, 3])
-def test_cuda_fused_deliver_matches_plain(cuda, b, integer):
+# name: (batch, integer inputs, keywords of _fused_inputs)
+FUSED_CASES = {
+    "b1-int": (1, True, {}),
+    "b3-int": (3, True, {}),
+    "b1-float": (1, False, {}),
+    "b3-float": (3, False, {}),
+    "activity 0%": (4, True, {"act": 0.0, "cap": 48}),
+    "activity 100%": (4, True, {"act": 1.0, "cap": 48}),
+    "activity 100% floats": (4, False, {"act": 1.0, "cap": 48}),
+    "capacity below the active count": (4, True, {"act": 0.6, "cap": 10}),
+    "S = 5, E = 5": (3, True, {"s": 5, "e": 5, "cap": 48}),
+    "cluster of 130, two parts": (3, True, {"ncl": 2, "c": 130, "cap": 260, "act": 0.2}),
+    "odd cluster of 13": (5, True, {"c": 13, "cap": 39}),
+    "K = 16384, shared-memory opt-in": (5, True, {"ncl": 2, "c": 64, "s": 64, "k": 16384,
+                                                   "e": 16, "cap": 128}),
+    "Table-V tile at B = 33": (33, True, {"ncl": 6, "c": 256, "s": 64, "k": 1024, "e": 16,
+                                          "cap": 1536, "act": 0.1}),
+    "several chunks of queue slots": (4, True, {"ncl": 41, "c": 100, "cap": 4100, "act": 0.5}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_cuda_fused_deliver_matches_plain(cuda, case):
+    """The kernel against its plain version, with and without ext: the
+    original small cases, 0% and 100% activity, a queue shorter than the
+    active count, S = 5, clusters that the split does not divide, a K whose
+    rows need the shared-memory opt-in, a ragged last batch tile, and a
+    share of slots that takes several chunks."""
+    b, integer, kw = FUSED_CASES[case]
     spikes, ext, src_tag, src_dest, cam_tag, cam_syn, c, k, cap = _fused_inputs(
-        b, integer, seed=b + 50
+        b, integer, seed=b + 50, **kw
     )
     tables = _t(src_tag, src_dest, cam_tag, cam_syn, device=cuda)
     q = compact_events(torch.as_tensor(spikes, device=cuda), cap)
@@ -161,39 +187,78 @@ def test_cuda_pool_backends_agree_and_launch_once_per_step(cuda):
 # ---------------------------------------------------------------------------
 # fabric_deliver: the time-wheel ring step
 # ---------------------------------------------------------------------------
-def _fabric_step_inputs(dev, entries, b, d1, nc, k, integer, seed):
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    m = entries.dstk.shape[0]
-    if integer:
-        w = (torch.rand((b, m), generator=gen, device=dev) < 0.3).float()
-        ring = torch.randint(0, 4, (b, d1, nc, k), generator=gen, device=dev).float()
-        ext = torch.randint(0, 3, (b, nc, k), generator=gen, device=dev).float() * 8.0
-    else:
-        w = torch.rand((b, m), generator=gen, device=dev)
-        ring = torch.rand((b, d1, nc, k), generator=gen, device=dev)
-        ext = torch.rand((b, nc, k), generator=gen, device=dev)
-    return w, ring, ext
+def _random_fabric(dev, seed, nc, cs, k, s, m, d1):
+    """Random static entry columns (with their per-cluster ranges) and CAM
+    tables, tags past K - 1 and types outside [0, 4) among them."""
+    rng = np.random.default_rng(seed)
+    n = nc * cs
+    dstk = torch.as_tensor(rng.integers(0, nc * k, m).astype(np.int32), device=dev)
+    delay = torch.as_tensor(rng.integers(0, d1, m).astype(np.int32), device=dev)
+    cam_tag = torch.as_tensor(rng.integers(-1, k + 4, (n, s)).astype(np.int32), device=dev)
+    cam_syn = torch.as_tensor(rng.integers(-1, 5, (n, s)).astype(np.int32), device=dev)
+    return dstk, delay, cam_tag, cam_syn
 
 
-@pytest.mark.parametrize("integer", [True, False])
-def test_cuda_fabric_deliver_matches_plain_at_serving_shape(cuda, integer):
+# name: (integer inputs, share of entries carrying weight, geometry: None = the
+#        Table-V network on its default fabric at B = 32, else (nc, cluster
+#        size, K, S, M, D1, B) of random entry columns)
+FABRIC_CASES = {
+    "serving-int": (True, 0.3, None),
+    "serving-float": (False, 1.0, None),
+    "serving activity 0%": (True, 0.0, None),
+    "serving activity 10%": (True, 0.1, None),
+    "serving activity 100%": (True, 1.0, None),
+    "S = 5": (True, 0.5, (3, 16, 32, 5, 200, 3, 5)),
+    "cluster of 130, two parts": (True, 0.5, (2, 130, 40, 8, 300, 2, 3)),
+    "odd cluster of 13": (True, 0.5, (3, 13, 32, 8, 50, 3, 3)),
+    "K = 8192, shared-memory opt-in": (True, 0.5, (2, 64, 8192, 64, 500, 2, 8)),
+    "1000 entries per cluster": (True, 0.5, (2, 32, 64, 8, 2000, 3, 4)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FABRIC_CASES))
+def test_cuda_fabric_deliver_matches_plain_at_serving_shape(cuda, case):
     """B = 32 slots of the Table-V network on its default fabric (M = 1280
-    entries, D1 = 2), at both cursor phases, with and without ext."""
-    cc = compile_poker_cnn()
-    t = cc.tables
-    be = FabricBackend()
-    entries = be.build_entries(t.src_tag, t.src_dest, t.cluster_size, t.k_tags, device=cuda)
-    d1 = be.model_for(t.n_clusters).max_delay + 1
-    assert entries.dstk.shape == (1280,) and d1 == 2
-    cam_tag, cam_syn = (torch.as_tensor(a, device=cuda) for a in (t.cam_tag, t.cam_syn))
-    w, ring, ext = _fabric_step_inputs(cuda, entries, 32, d1, t.n_clusters, t.k_tags, integer, 3)
+    entries, D1 = 2) at 0%, 10%, 30% and 100% of the entries carrying weight,
+    and random entry columns at S = 5, at clusters the split does not
+    divide, at a K whose rows need the shared-memory opt-in and with more
+    entries per cluster than a block has threads; at every
+    cursor phase, with and without ext, with the static per-cluster ranges
+    and with the ranges the wrapper derives itself."""
+    integer, share, geom = FABRIC_CASES[case]
+    if geom is None:
+        cc = compile_poker_cnn()
+        t = cc.tables
+        be = FabricBackend()
+        entries = be.build_entries(t.src_tag, t.src_dest, t.cluster_size, t.k_tags, device=cuda)
+        d1 = be.model_for(t.n_clusters).max_delay + 1
+        assert entries.dstk.shape == (1280,) and d1 == 2
+        dstk, delay = entries.dstk, entries.delay
+        ranges = {"cluster_start": entries.cluster_start, "cluster_order": entries.cluster_order}
+        cam_tag, cam_syn = (torch.as_tensor(a, device=cuda) for a in (t.cam_tag, t.cam_syn))
+        nc, cs, k, b = t.n_clusters, t.cluster_size, t.k_tags, 32
+    else:
+        nc, cs, k, s, m, d1, b = geom
+        dstk, delay, cam_tag, cam_syn = _random_fabric(cuda, len(case), nc, cs, k, s, m, d1)
+        start, order = fabric_ops.entry_cluster_ranges(dstk, nc, k)
+        ranges = {"cluster_start": start, "cluster_order": order}
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    m = dstk.shape[0]
+    carries = (torch.rand((b, m), generator=gen, device=cuda) < share).float()
+    if integer:
+        w = carries * torch.randint(1, 3, (b, m), generator=gen, device=cuda).float()
+        ring = torch.randint(0, 4, (b, d1, nc, k), generator=gen, device=cuda).float()
+        ext = torch.randint(0, 3, (b, nc, k), generator=gen, device=cuda).float() * 8.0
+    else:
+        w = carries * torch.rand((b, m), generator=gen, device=cuda)
+        ring = torch.rand((b, d1, nc, k), generator=gen, device=cuda)
+        ext = torch.rand((b, nc, k), generator=gen, device=cuda)
     for cursor in range(d1):
         cur = torch.tensor(cursor, dtype=torch.int32, device=cuda)
-        for e in (ext, None):
-            args = (entries.dstk, entries.delay, w, ring, cur, e, cam_tag, cam_syn,
-                    t.cluster_size, t.k_tags)
+        for e, kw in ((ext, ranges), (None, ranges), (ext, {})):
+            args = (dstk, delay, w, ring, cur, e, cam_tag, cam_syn, cs, k)
             before = fabric_ops.fabric_deliver.launches
-            drive, new_ring = fabric_ops.fabric_deliver(*args)
+            drive, new_ring = fabric_ops.fabric_deliver(*args, **kw)
             torch.cuda.synchronize()
             assert fabric_ops.fabric_deliver.launches == before + 1
             p_drive, p_ring = fabric_ops.fabric_deliver_ref(*args)
@@ -203,6 +268,37 @@ def test_cuda_fabric_deliver_matches_plain_at_serving_shape(cuda, integer):
             else:
                 torch.testing.assert_close(drive, p_drive, rtol=1e-6, atol=1e-6)
                 torch.testing.assert_close(new_ring, p_ring, rtol=1e-6, atol=1e-6)
+
+
+def test_cuda_delivery_kernels_report_registers_spills_and_occupancy(cuda):
+    """At the Table-V split both delivery kernels compile without spills
+    into blocks that fit at least once on an SM, and each library gives a
+    block the shared bytes its wrapper counts against the card's limit."""
+    for ops, split, shape in ((fused_ops, fused_ops.work_split(32, 1536, 256, 1024), (1024,)),
+                              (fabric_ops, fabric_ops.work_split(32, 256, 1024, 2), (1024, 2))):
+        info = ops.kernel_info(split, *shape)
+        assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0, info
+        assert info["blocks_per_sm"] >= 1 and info["shared_bytes"] == split.shared_bytes, info
+
+
+def test_cuda_fused_deliver_puts_one_kernel_on_the_device(cuda):
+    """The SRAM gather is inside the kernel: one call is one device
+    operation (torch.profiler), and the launch count says so."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spikes, ext, src_tag, src_dest, cam_tag, cam_syn, c, k, cap = _fused_inputs(4, True, seed=5)
+    tables = _t(src_tag, src_dest, cam_tag, cam_syn, device=cuda)
+    q = compact_events(torch.as_tensor(spikes, device=cuda), cap)
+    ext_t = torch.as_tensor(ext, device=cuda)
+    fused_ops.fused_deliver(q, *tables, c, k, external_activity=ext_t)
+    torch.cuda.synchronize()
+    before = fused_ops.fused_deliver.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fused_ops.fused_deliver(q, *tables, c, k, external_activity=ext_t)
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device_ops) == 1 and "fused_deliver_kernel" in device_ops[0], device_ops
+    assert fused_ops.fused_deliver.launches == before + 1
 
 
 def test_cuda_fabric_ring_kernel_matches_plain_over_wrapped_steps(cuda):

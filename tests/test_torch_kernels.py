@@ -99,27 +99,6 @@ def test_plain_fused_deliver_matches_pallas_interpret(b, integer):
         np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-5)
 
 
-def test_event_entries_flat_layout():
-    """``dest * K + tag`` per queued (event, entry) pair, -1 where empty,
-    weights zero there: the layout both kernels' stage 1 reads."""
-    spikes, _, src_tag, src_dest, *_rest = _fused_inputs(2, True, seed=7)
-    k = 32
-    tq = compact_events(torch.as_tensor(spikes), 24)
-    ev_flat, ev_w = fused_ops._event_entries_flat(tq, *_t(src_tag, src_dest), k)
-    assert ev_flat.shape == ev_w.shape == (2, 24 * src_tag.shape[1])
-    assert ev_flat.dtype == torch.int32
-    src = tq.src.numpy()
-    for bi in range(2):
-        for qi in range(24):
-            for e in range(src_tag.shape[1]):
-                f = int(ev_flat[bi, qi * src_tag.shape[1] + e])
-                s = src[bi, qi]
-                if s < 0 or src_tag[s, e] < 0:
-                    assert f == -1 and float(ev_w[bi, qi * src_tag.shape[1] + e]) == 0.0
-                else:
-                    assert f == src_dest[s, e] * k + src_tag[s, e]
-
-
 def test_kernel_sources_found_and_flags_target_hopper():
     assert set(_build.sources()) == {"cam_match", "fused_deliver", "fabric_deliver", "rwkv6_chunk"}
     flags = " ".join(_build.NVCC_FLAGS)
