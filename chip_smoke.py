@@ -12,13 +12,17 @@ Phases, each of which fails the run on any error:
      random floats (atomics and per-type sums add in another order); then
      timed with CUDA events (median of 60 repeats of 20 calls, after
      warm-up) beside the plain version, with the kernel's own device time
-     from torch.profiler. ``fused_deliver`` is also held at 0% and 100%
-     activity and at 100% into a queue of 64 slots (drops), and one call
-     must run exactly one device operation; ``fabric_deliver`` at 0%, 10%
+     from torch.profiler. ``cam_match`` is also held at B = 1 and 33, at
+     K = 16384 and at S = 5 (tags past K - 1 and types outside [0, 4)), and
+     timed beside its library yardstick, one ``torch.bmm`` of the activity
+     with the CAM count matrix (``cam_counts``), held to the same
+     tolerances. ``fused_deliver`` is also held at 0% and 100% activity and
+     at 100% into a queue of 64 slots (drops). One call of either must run
+     exactly one device operation. ``fabric_deliver`` is held at 0%, 10%
      and 100% of its entries carrying weight, at both cursors, and carried
      over 2*(max_delay+1)+1 steps on a geometry with max_delay = 2 and link
      capacity 2, where the kernel and plain legs must carry equal rings. The
-     registers, spills, shared bytes and blocks per SM of both delivery
+     registers, spills, shared bytes and blocks per SM of the three stage-2
      kernels are logged;
   3. the serving path: the offline-Hebbian calibration run, then a pool of
      32 slots serving 64 poker-DVS sessions (seed 7, 16 events per step)
@@ -88,6 +92,7 @@ from repro_torch.core.two_stage import compact_events  # noqa: E402
 from repro_torch.data.pipeline import DvsStreamConfig, DvsStreamSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cam_match import ops as cam_ops  # noqa: E402
+from repro_torch.kernels.cam_match.ref import cam_counts  # noqa: E402
 from repro_torch.kernels.fabric_deliver import ops as fabric_ops  # noqa: E402
 from repro_torch.kernels.fused_deliver import ops as fused_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops  # noqa: E402
@@ -156,9 +161,10 @@ def time_ms(fn, repeats: int = 60, inner: int = 20) -> float:
     return statistics.median(samples)
 
 
-def device_ms(fn, kernel_name: str, calls: int = 50) -> float | None:
+def device_ms(fn, kernel_name: str | None, calls: int = 50) -> float | None:
     """Mean device time of the kernel named ``kernel_name`` per call, from
-    torch.profiler; None when the trace shows no such kernel."""
+    torch.profiler; None when the trace shows no such kernel. With
+    ``kernel_name`` None: every device operation of a call, summed."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -169,10 +175,12 @@ def device_ms(fn, kernel_name: str, calls: int = 50) -> float | None:
         torch.cuda.synchronize()
     total_us, count = 0.0, 0
     for evt in prof.events():
-        if kernel_name in evt.name and evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.device_type == torch.autograd.DeviceType.CUDA and (
+                kernel_name is None or kernel_name in evt.name):
             total_us += evt.time_range.elapsed_us()
             count += 1
-    return None if count == 0 else total_us / count / 1e3
+    per = calls if kernel_name is None else count
+    return None if count == 0 else total_us / per / 1e3
 
 
 def _bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
@@ -192,44 +200,9 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
         torch.as_tensor(getattr(t, k), device=dev)
         for k in ("src_tag", "src_dest", "cam_tag", "cam_syn")
     )
-    nc, k, cs = t.n_clusters, t.k_tags, t.cluster_size
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    valid_words = int((cam_tag >= 0).sum())
     out: dict[str, dict] = {}
-
-    # -- cam_match: [B, nc, K] activity -> [B, N, 4] drive ----------------
-    act_int = torch.randint(0, 17, (POOL, nc, k), generator=gen, device=dev).float() * 8.0
-    act_flt = torch.rand((POOL, nc, k), generator=gen, device=dev)
-    got_int = cam_ops.cam_match(act_int, cam_tag, cam_syn, cs)
-    got_flt = cam_ops.cam_match(act_flt, cam_tag, cam_syn, cs)
-    torch.cuda.synchronize()
-    ref_int = cam_ops.cam_match_ref(act_int, cam_tag, cam_syn, cs)
-    ref_flt = cam_ops.cam_match_ref(act_flt, cam_tag, cam_syn, cs)
-    if not torch.equal(got_int, ref_int):
-        raise AssertionError(
-            f"cam_match not bit-exact on integer inputs: max err {(got_int - ref_int).abs().max()}"
-        )
-    torch.testing.assert_close(got_flt, ref_flt, rtol=1e-6, atol=1e-6)
-    n_bytes = _nbytes(act_flt, cam_tag, cam_syn, got_flt)
-    bound_ms, bound_by = _bound(n_bytes, POOL * valid_words)
-    out["cam_match"] = {
-        "name": "cam_match",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/cam_match/csrc/cam_match.cu",
-        "replaces": "src/repro/kernels/cam_match/cam_match.py:39",
-        "max_abs_err": float((got_flt - ref_flt).abs().max()),
-        "max_abs_err_integer_inputs": float((got_int - ref_int).abs().max()),
-        "ms": time_ms(lambda: cam_ops.cam_match(act_flt, cam_tag, cam_syn, cs)),
-        "plain_ms": time_ms(lambda: cam_ops.cam_match_ref(act_flt, cam_tag, cam_syn, cs)),
-        "device_ms": device_ms(lambda: cam_ops.cam_match(act_flt, cam_tag, cam_syn, cs),
-                               "cam_match_kernel"),
-        "bytes": n_bytes,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,  # no single PyTorch call computes the CAM match
-        "shape": f"activity [{POOL},{nc},{k}] f32, cam [{t.n_neurons},{t.cam_tag.shape[1]}] i32",
-    }
-
+    out["cam_match"] = cam_kernel_entry(dev, t, cam_tag, cam_syn, gen)
     out["fused_deliver"] = fused_kernel_entry(dev, t, (src_tag, src_dest, cam_tag, cam_syn), gen)
     out["fabric_deliver"] = fabric_kernel_entry(dev, t, cam_tag, cam_syn, gen)
     check_fabric_wrap(dev)
@@ -242,16 +215,23 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
     return out
 
 
-def _device_ops_per_call(fn) -> list[str]:
-    """The names of the device operations one call of ``fn`` runs (torch.profiler)."""
+def _device_ops_per_call(fn, tries: int = 3) -> list[str]:
+    """The names of the device operations one call of ``fn`` runs
+    (torch.profiler). A trace that recorded no device event at all is taken
+    again, up to ``tries`` times: the profiler has been seen to record none
+    for a call that launched a kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
+    return ops
 
 
 def _log_kernel_info(name: str, info: dict, split) -> None:
@@ -261,6 +241,114 @@ def _log_kernel_info(name: str, info: dict, split) -> None:
     log(f"{name}: {info['registers']} registers, {info['local_bytes']} local (spill) bytes per "
         f"thread, {info['shared_bytes']} shared bytes and {info['blocks_per_sm']} blocks per SM "
         f"at the serving split {split}")
+
+
+# cam_match cases beside the serving shape: (name, batch, random tables or
+# None for Table-V's: (n_clusters, cluster_size, K, S))
+CAM_CASES = (
+    ("B = 1", 1, None),
+    ("B = 33, a ragged last tile", 33, None),
+    ("K = 16384, shared-memory opt-in", 5, (2, 64, 16384, 64)),
+    ("S = 5, clusters of 13", 3, (3, 13, 32, 5)),
+)
+
+
+def _cam_case(dev, gen, b, shape, tabs):
+    """Integer and float activity for one case, and its CAM tables (random
+    ones draw tags past K - 1 and types outside [0, 4))."""
+    if shape is None:
+        cam_tag, cam_syn, nc, cs, k = tabs
+    else:
+        nc, cs, k, s = shape
+        cam_tag = torch.randint(-1, k + 4, (nc * cs, s), generator=gen, device=dev,
+                                dtype=torch.int32)
+        cam_syn = torch.randint(-1, 5, (nc * cs, s), generator=gen, device=dev, dtype=torch.int32)
+    act_int = torch.randint(0, 17, (b, nc, k), generator=gen, device=dev).float() * 8.0
+    act_flt = torch.rand((b, nc, k), generator=gen, device=dev)
+    return act_int, act_flt, cam_tag, cam_syn, cs
+
+
+def _hold_cam(what, got_int, ref_int, got_flt, ref_flt) -> None:
+    if not torch.equal(got_int, ref_int):
+        raise AssertionError(f"{what} not bit-exact on integer inputs: max err "
+                             f"{(got_int - ref_int).abs().max()}")
+    torch.testing.assert_close(got_flt, ref_flt, rtol=1e-6, atol=1e-6)
+
+
+def cam_kernel_entry(dev, t, cam_tag, cam_syn, gen) -> dict:
+    """``cam_match`` at the serving shape, activity [B, nc, K] -> drive
+    [B, N, 4], held against the plain version (and at B = 1, 33, K = 16384
+    and S = 5); one call must be one device operation. Beside it the library
+    yardstick: one ``torch.bmm`` of the activity with the per-cluster count
+    matrix of ``cam_counts`` (TF32 off), held to the same tolerances."""
+    nc, k, cs, n = t.n_clusters, t.k_tags, t.cluster_size, t.n_neurons
+    tabs = (cam_tag, cam_syn, nc, cs, k)
+    cases = {}
+    for name, b, shape in CAM_CASES:
+        a_int, a_flt, tag, syn, c = _cam_case(dev, gen, b, shape, tabs)
+        got_int = cam_ops.cam_match(a_int, tag, syn, c)
+        got_flt = cam_ops.cam_match(a_flt, tag, syn, c)
+        torch.cuda.synchronize()
+        ref_flt = cam_ops.cam_match_ref(a_flt, tag, syn, c)
+        _hold_cam(f"cam_match at {name}", got_int, cam_ops.cam_match_ref(a_int, tag, syn, c),
+                  got_flt, ref_flt)
+        cases[name] = {"max_abs_err": float((got_flt - ref_flt).abs().max()),
+                       "split": str(cam_ops.work_split(b, c, a_flt.shape[-1]))}
+    act_int, act_flt, *_ = _cam_case(dev, gen, POOL, None, tabs)
+    got_int = cam_ops.cam_match(act_int, cam_tag, cam_syn, cs)
+    got_flt = cam_ops.cam_match(act_flt, cam_tag, cam_syn, cs)
+    torch.cuda.synchronize()
+    ref_int = cam_ops.cam_match_ref(act_int, cam_tag, cam_syn, cs)
+    ref_flt = cam_ops.cam_match_ref(act_flt, cam_tag, cam_syn, cs)
+    _hold_cam("cam_match", got_int, ref_int, got_flt, ref_flt)
+    call = lambda: cam_ops.cam_match(act_flt, cam_tag, cam_syn, cs)  # noqa: E731
+    ops = _device_ops_per_call(call)
+    if len(ops) != 1 or "cam_match_kernel" not in ops[0]:
+        raise AssertionError(f"one cam_match call ran {len(ops)} device operations: {ops}")
+    split = cam_ops.work_split(POOL, cs, k)
+    info = cam_ops.kernel_info(split, k)
+    _log_kernel_info("cam_match", info, split)
+
+    # the library yardstick: drive = bmm(A^T, C), clusters first
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = cam_counts(cam_tag, cam_syn, nc, k)
+    bmm = lambda a: torch.bmm(a.transpose(0, 1), counts)  # noqa: E731
+    as_drive = lambda d: d.transpose(0, 1).reshape(POOL, n, 4)  # noqa: E731
+    lib_int, lib_flt = as_drive(bmm(act_int)), as_drive(bmm(act_flt))
+    _hold_cam("torch.bmm with the CAM counts", lib_int, ref_int, lib_flt, ref_flt)
+    library_device_ms = device_ms(lambda: bmm(act_flt), None)
+    log(f"cam_match: library yardstick torch.bmm [{nc},{POOL},{k}] x [{nc},{k},{cs * 4}] "
+        f"(TF32 off) holds to the plain version; device ops "
+        f"{_device_ops_per_call(lambda: bmm(act_flt))}, {library_device_ms} ms on the device")
+    log("cam_match: " + "; ".join(f"{name}: max_abs_err {c['max_abs_err']:.3g} at {c['split']}"
+                                  for name, c in cases.items()))
+
+    n_bytes = _nbytes(act_flt, cam_tag, cam_syn, got_flt)
+    bound_ms, bound_by = _bound(n_bytes, POOL * int((cam_tag >= 0).sum()))
+    return {
+        "name": "cam_match",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/cam_match/csrc/cam_match.cu",
+        "replaces": "src/repro/kernels/cam_match/cam_match.py:39",
+        "max_abs_err": float((got_flt - ref_flt).abs().max()),
+        "max_abs_err_integer_inputs": float((got_int - ref_int).abs().max()),
+        "ms": time_ms(call),
+        "plain_ms": time_ms(lambda: cam_ops.cam_match_ref(act_flt, cam_tag, cam_syn, cs)),
+        "device_ms": device_ms(call, "cam_match_kernel"),
+        "device_ops_per_call": len(ops),
+        "cases": cases,
+        **{f"kernel_{key}": v for key, v in info.items()},
+        "split": str(split),
+        "bytes": n_bytes,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": time_ms(lambda: bmm(act_flt)),
+        "library_device_ms": library_device_ms,
+        "library_max_abs_err": float((lib_flt - ref_flt).abs().max()),
+        "library_call": f"torch.bmm(activity.transpose(0, 1), cam_counts(...)), counts "
+                        f"[{nc},{k},{cs * 4}] f32, TF32 off",
+        "shape": f"activity [{POOL},{nc},{k}] f32, cam [{n},{cam_tag.shape[1]}] i32",
+    }
 
 
 def fused_kernel_entry(dev, t, tabs, gen) -> dict:

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Sweep the work split of the two delivery kernels on one NVIDIA GPU.
+"""Sweep the work split of the three stage-2 kernels on one NVIDIA GPU.
 
 At the Table-V serving shape (B = 32 slots, N = 1536 neurons in 6 clusters
 of 256, K = 1024, S = 64, E = 16; for ``fabric_deliver`` the default 3x3
 fabric's M = 1280 entries and a ring of D1 = 2), each kernel is run at every
-batch tile of 2, 4 and 8 and 32, 64 or 128 neurons per block, checked
-against its plain version (bit-exact on integer-valued inputs), and timed on
-the device with torch.profiler (the kernel's mean time over 50 calls).
-``fused_deliver`` is timed at 0%, 10% and 100% of the neurons spiking and at
-100% into a queue of 64 slots; ``fabric_deliver`` with 10% of the entries
+batch tile of 1, 2, 4 and 8 and 32, 64 or 128 neurons per block, checked
+against its plain version (bit-exact on integer-valued inputs; ``cam_match``
+also allclose(rtol=1e-6, atol=1e-6) on random floats), and timed on the
+device with torch.profiler (the kernel's mean time over 50 calls).
+``cam_match`` is timed on integer-valued and on random-float activity;
+``fused_deliver`` at 0%, 10% and 100% of the neurons spiking and at 100%
+into a queue of 64 slots; ``fabric_deliver`` with 10% of the entries
 carrying weight. ``kernels/_split.py`` holds the split chosen from this
 sweep. Prints one JSON object; run from the repository root:
 
@@ -33,23 +35,26 @@ from repro_torch.core.cnn import compile_poker_cnn  # noqa: E402
 from repro_torch.core.dispatch import FabricBackend  # noqa: E402
 from repro_torch.core.two_stage import compact_events  # noqa: E402
 from repro_torch.kernels import _build, _split  # noqa: E402
+from repro_torch.kernels.cam_match import ops as cam_ops  # noqa: E402
 from repro_torch.kernels.fabric_deliver import ops as fabric_ops  # noqa: E402
 from repro_torch.kernels.fused_deliver import ops as fused_ops  # noqa: E402
 
-TILES = (2, 4, 8)
+TILES = (1, 2, 4, 8)
 NEURONS_PER_BLOCK = (32, 64, 128)
 B = 32
 
 
 def _with_split(tile: int, neurons: int):
     _split.BATCH_TILE, _split.NEURONS_PER_BLOCK = tile, neurons
-    fused_ops.work_split.cache_clear()
-    fabric_ops.work_split.cache_clear()
+    _split.CAM_MATCH_BATCH_TILE, _split.CAM_MATCH_NEURONS_PER_BLOCK = tile, neurons
+    for ops in (cam_ops, fused_ops, fabric_ops):
+        ops.work_split.cache_clear()
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("tune_delivery_split: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain stage 2 is a float32 matmul
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
@@ -74,13 +79,27 @@ def main() -> None:
     fargs = (entries.dstk, entries.delay, w, ring, cur, ext, tabs[2], tabs[3], cs, k)
     ranges = {"cluster_start": entries.cluster_start, "cluster_order": entries.cluster_order}
     plain_fabric = fabric_ops.fabric_deliver_ref(*fargs)
+    activity = {
+        "integer": torch.randint(0, 17, (B, nc, k), generator=gen, device=dev).float() * 8.0,
+        "random floats": torch.rand((B, nc, k), generator=gen, device=dev),
+    }
+    plain_cam = {name: cam_ops.cam_match_ref(a, *tabs[2:], cs) for name, a in activity.items()}
 
     sweep = []
     for tile in TILES:
         for neurons in NEURONS_PER_BLOCK:
             _with_split(tile, neurons)
             row = {"batch_tile": tile, "neurons_per_block": neurons,
-                   "parts": _split.parts_for(cs), "fused_device_ms": {}}
+                   "parts": _split.parts_for(cs), "cam_device_ms": {}, "fused_device_ms": {}}
+            for name, a in activity.items():
+                def cam_call(a=a):
+                    return cam_ops.cam_match(a, tabs[2], tabs[3], cs)
+
+                got = cam_call()
+                if name == "integer" and not torch.equal(got, plain_cam[name]):
+                    raise AssertionError(f"cam_match differs from plain at {row}, {name}")
+                torch.testing.assert_close(got, plain_cam[name], rtol=1e-6, atol=1e-6)
+                row["cam_device_ms"][name] = chip_smoke.device_ms(cam_call, "cam_match_kernel")
             for name, q in queues.items():
                 def fn(q=q):
                     return fused_ops.fused_deliver(q, *tabs, cs, k, external_activity=ext)

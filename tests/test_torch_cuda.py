@@ -47,15 +47,17 @@ def cuda():
     return torch.device("cuda")
 
 
-def _cam_inputs(b, integer, seed, ncl=3, c=16, s=8, k=32):
+def _cam_inputs(b, integer, seed, ncl=3, c=16, s=8, k=32, wild=False):
+    """Activity and CAM tables; ``wild`` draws a few tags past K - 1 and
+    types outside [0, 4)."""
     rng = np.random.default_rng(seed)
     n = ncl * c
     if integer:
         act = rng.integers(0, 20, (b, ncl, k)).astype(np.float32) * 8.0
     else:
         act = rng.random((b, ncl, k)).astype(np.float32)
-    tag = rng.integers(-1, k, (n, s)).astype(np.int32)
-    syn = rng.integers(0, 4, (n, s)).astype(np.int32)
+    tag = rng.integers(-1, k + 4 if wild else k, (n, s)).astype(np.int32)
+    syn = rng.integers(*((-1, 5) if wild else (0, 4)), (n, s)).astype(np.int32)
     return act, tag, syn, c
 
 
@@ -80,10 +82,33 @@ def _t(*arrays, device):
     return [torch.as_tensor(a, device=device) for a in arrays]
 
 
-@pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("b", [1, 4])
-def test_cuda_cam_match_matches_plain(cuda, b, integer):
-    act, tag, syn, c = _cam_inputs(b, integer, seed=b + 10)
+# name: (batch, integer inputs, keywords of _cam_inputs)
+CAM_CASES = {
+    "b1-int": (1, True, {}),
+    "b4-int": (4, True, {}),
+    "b1-float": (1, False, {}),
+    "b4-float": (4, False, {}),
+    "tags and types out of range": (4, True, {"wild": True}),
+    "tags and types out of range, floats": (4, False, {"wild": True}),
+    "S = 5": (3, True, {"s": 5, "wild": True}),
+    "S = 5, floats": (3, False, {"s": 5, "wild": True}),
+    "odd cluster of 13": (5, True, {"c": 13, "wild": True}),
+    "cluster of 130, three parts": (3, True, {"ncl": 2, "c": 130, "wild": True}),
+    "K = 16384, shared-memory opt-in": (5, True, {"ncl": 2, "c": 64, "s": 64, "k": 16384,
+                                                   "wild": True}),
+    "Table-V tile at B = 33": (33, True, {"ncl": 6, "c": 256, "s": 64, "k": 1024, "wild": True}),
+    "Table-V at B = 32, floats": (32, False, {"ncl": 6, "c": 256, "s": 64, "k": 1024}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CAM_CASES))
+def test_cuda_cam_match_matches_plain(cuda, case):
+    """The kernel against its plain version: the original small cases, tags
+    past K - 1 and types outside [0, 4), S = 5 (single-word reads), clusters
+    that the split does not divide, a K whose rows need the shared-memory
+    opt-in, a ragged last batch tile, and the Table-V shape."""
+    b, integer, kw = CAM_CASES[case]
+    act, tag, syn, c = _cam_inputs(b, integer, seed=b + 10, **kw)
     args = _t(act, tag, syn, device=cuda)
     before = cam_ops.cam_match.launches
     out = cam_ops.cam_match(*args, c)
@@ -156,6 +181,44 @@ def test_cuda_wrappers_raise_on_bad_arguments(cuda):
         cam_ops.cam_match(a, t.cpu(), s, c)
     with pytest.raises(ValueError, match="clusters"):
         cam_ops.cam_match(a, t, s, c + 1)
+
+
+def test_cuda_cam_match_raises_past_int32_and_on_a_split_that_does_not_fit(cuda):
+    """The kernel indexes in 32 bits and has no fallback: activity past
+    2**31 - 1 elements, and rows too long for a block's shared memory, are
+    refused before any launch."""
+    _, tag, syn, c = _cam_inputs(1, True, seed=4, ncl=2)
+    t, s = _t(tag, syn, device=cuda)
+    before = cam_ops.cam_match.launches
+    huge = torch.empty((1, 2, 2**30 + 1), dtype=torch.float32, device=cuda)  # 8.6 GB, not written
+    with pytest.raises(ValueError, match="activity has 2147483650 elements.*no fallback"):
+        cam_ops.cam_match(huge, t, s, c)
+    del huge
+    long_rows = torch.zeros((1, 2, 60000), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="cam_match: a block needs 240004 bytes.*no fallback"):
+        cam_ops.cam_match(long_rows, t, s, c)
+    assert cam_ops.cam_match.launches == before
+
+
+def test_cuda_cam_match_reports_no_spills_and_one_device_op(cuda):
+    """At the Table-V split the kernel compiles without spills into blocks
+    that fit on an SM, its library gives a block the shared bytes the
+    wrapper counts, and one call is one device operation (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    split = cam_ops.work_split(32, 256, 1024)
+    info = cam_ops.kernel_info(split, 1024)
+    assert 0 < info["registers"] <= 255 and info["local_bytes"] == 0, info
+    assert info["blocks_per_sm"] >= 1 and info["shared_bytes"] == split.shared_bytes, info
+    act, tag, syn, c = _cam_inputs(32, False, seed=6, ncl=6, c=256, s=64, k=1024)
+    args = _t(act, tag, syn, device=cuda)
+    cam_ops.cam_match(*args, c)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        cam_ops.cam_match(*args, c)
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device_ops) == 1 and "cam_match_kernel" in device_ops[0], device_ops
 
 
 def test_cuda_pool_backends_agree_and_launch_once_per_step(cuda):
