@@ -35,6 +35,27 @@ Phases, each of which fails the run on any error:
      against the plain one where links drop; a small network is held
      against the dense oracle on the card; one profiled window of serving
      steps per kernel backend says where the device time goes;
+  3b. the compiler path (routing compiler v2, the traffic feedback loop and
+     the dispatch autotuner), each part with the launch counts set to 0
+     just before it and read just after: Table-V under the reuse allocator
+     (the default readout's tables equal v1's; the Hebbian readout's v2
+     tables serve the 64 sessions on fused and cuda identically to the v1
+     legs); the feedback loop (a 32-slot pool on the 3x3 fabric at link
+     capacity 2 with per-link stats from the corners-first placement, 16
+     steps, optimize_placement on its measured profile, 16 steps on the
+     re-placed tables; kernel and plain legs equal, and the JAX package's
+     2219 -> 374 link drops and placement [4, 5, 4, 4, 4, 1]; host ms per
+     step beside the pool without a profile and without per-link stats);
+     the Table-IV shuffle network (4x4 tiles of 4 cores, clusters of 8,
+     K = 64: v2 tags and SRAM bits against v1, one all-spiking step at link
+     capacity 1, 904 -> 154 link drops, kernel and plain legs equal;
+     two_stage_deliver on the v2 tables against the dense oracle; retarget
+     to 2x2 tiles of 4 cores of 32, saved under build/, loaded, entry_table
+     against the engine's, 4 steps against the delay-aware dense oracle);
+     the autotuned pool (backend="auto" at activity 0.1, B = 32, built
+     twice to the same decision: every candidate's microseconds, 64
+     sessions equal to the fixed legs', launching the winner's kernel,
+     cam_match or fused_deliver, once per step);
   4. LM serving: rwkv6-3b at full width and depth (32 layers, bfloat16
      weights initialised on the card from seed 7) serves 8 prompts of 512
      tokens with 32 new greedy tokens through ``Engine.generate``, which must
@@ -51,7 +72,8 @@ Phases, each of which fails the run on any error:
      the chunked core's padding, and on tail chunks of T = 8, 17 and 37;
      its registers, spills, shared bytes and blocks per SM are logged.
 
-Prints a ``{"kernels": [...]}`` JSON line, then as the last line
+Prints a ``{"kernels": [...]}`` JSON line (``launches`` from the serving
+and LM paths, ``launches_compiler_phase`` from phase 3b), then as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (the plain stage 2
 contracts a one-hot with a float32 matmul). Run from the repository root:
 
@@ -80,15 +102,27 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cnn import compile_poker_cnn  # noqa: E402
+from repro_torch.core.compiler import (  # noqa: E402
+    CompiledArtifact,
+    Geometry,
+    compile_network_v2,
+    optimize_placement,
+    retarget,
+)
 from repro_torch.core.dispatch import FabricBackend  # noqa: E402
 from repro_torch.core.event_engine import (  # noqa: E402
     EventEngine,
     dense_reference_step,
     dense_weights_from_tables,
 )
+from repro_torch.core.neuron import neuron_step  # noqa: E402
 from repro_torch.core.routing import ChipConstants, Fabric  # noqa: E402
 from repro_torch.core.tags import NetworkSpec, compile_network  # noqa: E402
-from repro_torch.core.two_stage import compact_events  # noqa: E402
+from repro_torch.core.two_stage import (  # noqa: E402
+    compact_events,
+    stage2_cam_match,
+    two_stage_deliver,
+)
 from repro_torch.data.pipeline import DvsStreamConfig, DvsStreamSource  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cam_match import ops as cam_ops  # noqa: E402
@@ -672,12 +706,12 @@ def rwkv_kernel_entry(dev: torch.device) -> dict:
 # ---------------------------------------------------------------------------
 # phase 3: serving
 # ---------------------------------------------------------------------------
-def _sessions(suits) -> list[DvsSession]:
+def _sessions(suits, seed: int = SEED) -> list[DvsSession]:
     return [
         DvsSession(
             i,
             DvsStreamSource(
-                DvsStreamConfig(symbol=int(suits[i]), events_per_step=EVENTS_PER_STEP, seed=SEED),
+                DvsStreamConfig(symbol=int(suits[i]), events_per_step=EVENTS_PER_STEP, seed=seed),
                 session_id=i,
             ),
             label=int(suits[i]),
@@ -796,12 +830,15 @@ def profile_serving(pool: AerSessionPool, suits) -> dict:
     }
 
 
-def _serve_leg(cc, dev, backend, fabric_options, suits, expect_kernel, pool_size=POOL):
-    """Serve ``suits``' sessions on one leg: warm up, then reset the launch
-    counts, serve, read the counts and check them against one launch of
+def _serve_leg(cc, dev, backend, fabric_options, suits, expect_kernel, pool_size=POOL,
+               engine=None):
+    """Serve ``suits``' sessions on one leg (on ``engine`` when given, else
+    on a new one for ``backend``): warm up, then reset the launch counts,
+    serve, read the counts and check them against one launch of
     ``expect_kernel`` per engine step (and none of the others)."""
-    engine = build_poker_engine(cc.tables, backend=backend, device=dev,
-                                fabric_options=fabric_options)
+    if engine is None:
+        engine = build_poker_engine(cc.tables, backend=backend, device=dev,
+                                    fabric_options=fabric_options)
     warm = AerSessionPool(cc, engine, AerServeConfig(pool_size=pool_size))
     warm.serve(_sessions(suits)[:2])  # first-use allocations and library loads
     pool = AerSessionPool(cc, engine, AerServeConfig(pool_size=pool_size))
@@ -890,7 +927,402 @@ def phase_serving(dev: torch.device) -> dict[str, int]:
     (OUT_DIR / "chip_smoke_serving.json").write_text(
         json.dumps({"serving": summary, "profile": prof}, indent=1)
     )
-    return launches
+    v1 = {"cc": cc, "fc_select": fc_select, "suits": suits,
+          "results": {k: runs[k]["results"] for k in ("fused", "cuda")}}
+    return launches, v1
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: compiler v2, the traffic feedback loop and the dispatch autotuner
+# ---------------------------------------------------------------------------
+# What the JAX package gives for this phase's workloads (integer counts and
+# a placement from its CPU run; the port must reproduce them on the card):
+# the feedback loop of benchmarks/serving.py (a 32-slot Table-V pool on the
+# 3x3 fabric at link capacity 2 with the corners-first placement, sessions
+# of seed 23, 16 steps) and the Table-IV shuffle network of
+# benchmarks/routing_throughput.py (4x4 tiles of 4 cores, clusters of 8,
+# K = 64, rng seed 17; one all-spiking step at link capacity 1).
+STALE_PLACEMENT = np.array([0, 8, 2, 6, 4, 5], np.int32)
+LOOP_SEED, LOOP_STEPS = 23, 16
+LOOP_DROPS = {"before": 2219, "after": 374}
+LOOP_PLACEMENT = [4, 5, 4, 4, 4, 1]
+SHUFFLE_DROPS = {"v1_default": 904, "v2_optimized": 154}
+COMPILER_PATH_KERNELS = ("cam_match", "fused_deliver", "fabric_deliver")
+
+
+def _counted(fn):
+    """``fn()`` with every launch count set to 0 just before and read just
+    after: ``(result, counts)``."""
+    torch.cuda.synchronize()
+    _reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _read_counts()
+
+
+def _expect_launches(counts: dict, want: dict, what: str) -> None:
+    full = {name: want.get(name, 0) for name in counts}
+    if counts != full:
+        raise AssertionError(f"{what}: launches {counts}, expected {full}")
+
+
+def check_table_v_v2(dev, v1, launched) -> dict:
+    """Table-V compiled by v2 (the reuse allocator, with its report). With
+    the default readout no two allocation units share a source set, so the
+    tables' fingerprint equals v1's. The serving phase's Hebbian readout
+    selects some pool neurons for several classes, whose units v2 merges:
+    its tables differ from v1's but realize the same dense connectivity,
+    and the 64 sessions on the fused and cuda legs must equal the serving
+    phase's v1 legs, session for session."""
+    default_v1 = compile_poker_cnn()
+    default_v2 = compile_poker_cnn(allocator="reuse", with_report=True)
+    if default_v2.tables.fingerprint() != default_v1.tables.fingerprint():
+        raise AssertionError("default Table-V under allocator='reuse' differs from v1's tables")
+    cc1 = v1["cc"]
+    cc2 = compile_poker_cnn(fc_select=v1["fc_select"], allocator="reuse", with_report=True)
+    if not np.array_equal(cc2.tables.dense_equivalent(), cc1.tables.dense_equivalent()):
+        raise AssertionError("Hebbian Table-V: v2's dense connectivity differs from v1's")
+    reports = {"default": default_v2.report, "hebbian": cc2.report}
+    for name, rep in reports.items():
+        for line in rep.summary().splitlines():
+            log(f"compiler v2, Table-V ({name} readout): {line}")
+    legs = {}
+    for label, kernel in (("fused", "fused_deliver"), ("cuda", "cam_match")):
+        r = _serve_leg(cc2, dev, label, None, v1["suits"], kernel)
+        launched.update(r["launches"])
+        if r["results"] != v1["results"][label]:
+            raise AssertionError(f"v2 Table-V on {label}: sessions differ from the v1 leg's")
+        legs[label] = {k: r[k] for k in ("accuracy", "latency_p50_steps", "sessions_per_s",
+                                          "engine_steps", "launches")}
+    log(f"compiler v2, Table-V: the default readout's tables equal v1's (fingerprint "
+        f"{default_v2.tables.fingerprint()[:16]}); on the Hebbian readout's v2 tables "
+        f"({int(cc2.report.tags_used.sum())} tags against v1's {int(cc2.report.tags_v1.sum())}) "
+        f"{SESSIONS} sessions on fused and cuda equal the v1 legs (prediction, decided, latency, "
+        f"counts, drops)")
+    return {
+        "default_fingerprint": default_v2.tables.fingerprint(),
+        "hebbian_fingerprints": {"v1": cc1.tables.fingerprint(), "v2": cc2.tables.fingerprint()},
+        **{f"{name}_report": {"tags_v2": int(rep.tags_used.sum()), "tags_v1": int(rep.tags_v1.sum()),
+                              "sram_bits": rep.sram_bits, "cam_bits": rep.cam_bits,
+                              "measured_bits_per_neuron": rep.measured_bits_per_neuron,
+                              "eq2_bits_per_neuron": rep.eq2_bits_per_neuron}
+           for name, rep in reports.items()},
+        "legs": legs,
+    }
+
+
+def _profile_record(profile) -> dict:
+    return {"pair_delivered": profile.pair_delivered.tolist(),
+            "link_dropped": profile.link_dropped.tolist(), "dropped": profile.dropped,
+            "steps": profile.steps, "total_link_dropped": profile.total_link_dropped}
+
+
+def check_feedback_loop(dev, launched) -> dict:
+    """Measure -> optimize -> recompile on the card: the stale-placement
+    pool serves LOOP_STEPS steps with per-link stats through
+    ``fabric_deliver`` (and on the ``kernel=False`` leg), its measured
+    profile is re-placed by ``optimize_placement``, and a pool on the
+    re-placed tables serves the same cohort. Both legs must give the same
+    profiles and placement, and the JAX package's drops and placement. Then
+    the host time per step of the profiled pool beside an unprofiled one."""
+    cc = compile_poker_cnn()
+    suits = np.random.default_rng(LOOP_SEED).integers(0, 4, POOL)
+    cfg = AerServeConfig(pool_size=POOL, max_steps=10**6)
+
+    def pool_on(placement, kernel=True, per_link_stats=True):
+        tables = dataclasses.replace(cc.tables, tile_of_cluster=placement)
+        opts = {"link_capacity": 2, "per_link_stats": per_link_stats, "kernel": kernel}
+        engine = build_poker_engine(tables, "fabric", device=dev, fabric_options=opts)
+        pool = AerSessionPool(dataclasses.replace(cc, tables=tables), engine, cfg)
+        for sess in _sessions(suits, seed=LOOP_SEED):
+            pool.admit(sess)
+        return pool
+
+    def serve(pool):
+        for _ in range(LOOP_STEPS):
+            pool.step()
+        return pool
+
+    legs = {}
+    for kernel in (True, False):
+        want = {"fabric_deliver": LOOP_STEPS} if kernel else {}
+        before, counts = _counted(lambda: serve(pool_on(STALE_PLACEMENT, kernel)))
+        _expect_launches(counts, want, f"feedback loop before, kernel={kernel}")
+        launched.update(counts)
+        placement, info = optimize_placement(before.profile.matrix(), Fabric(),
+                                             init=STALE_PLACEMENT, seed=0)
+        after, counts = _counted(lambda: serve(pool_on(placement, kernel)))
+        _expect_launches(counts, want, f"feedback loop after, kernel={kernel}")
+        launched.update(counts)
+        legs[kernel] = {"before": _profile_record(before.profile),
+                        "after": _profile_record(after.profile),
+                        "placement": placement.tolist(), "info": info,
+                        "fingerprint_before": before.fingerprint(),
+                        "fingerprint_after": after.fingerprint()}
+    if legs[True] != legs[False]:
+        raise AssertionError("feedback loop: the kernel and plain legs differ (profile, "
+                             "placement or fingerprints)")
+    got = legs[True]
+    drops = {k: int(got[k]["total_link_dropped"]) for k in ("before", "after")}
+    if drops != LOOP_DROPS or got["placement"] != LOOP_PLACEMENT:
+        raise AssertionError(f"feedback loop: drops {drops} and placement {got['placement']}, "
+                             f"the JAX package gives {LOOP_DROPS} and {LOOP_PLACEMENT}")
+    if got["fingerprint_before"] == got["fingerprint_after"]:
+        raise AssertionError("feedback loop: the re-placed pool has the stale pool's fingerprint")
+
+    # host time per step, in turns: the profiled pool; the same engine's
+    # per-link stats without the profile folded (the profile's own cost);
+    # an engine without per-link stats
+    timed = {"profiled": pool_on(STALE_PLACEMENT), "per_link_stats_only": pool_on(STALE_PLACEMENT),
+             "unprofiled": pool_on(STALE_PLACEMENT, per_link_stats=False)}
+    timed["per_link_stats_only"].profile = None
+    ms = {name: [] for name in timed}
+    for pool in timed.values():
+        for _ in range(3):
+            pool.step()
+    for _ in range(3):
+        for name, pool in timed.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve(pool)
+            ms[name].append((time.perf_counter() - t0) * 1e3 / LOOP_STEPS)
+    log(f"feedback loop ({POOL} slots, link capacity 2, {LOOP_STEPS} steps; kernel and plain "
+        f"legs equal): link drops {drops['before']} at {STALE_PLACEMENT.tolist()} -> "
+        f"{drops['after']} at {got['placement']}; predicted mean hops "
+        f"{got['info']['mean_hops_init']:.3f} -> {got['info']['mean_hops_final']:.3f}; "
+        f"pool fingerprints {got['fingerprint_before'][:16]} -> {got['fingerprint_after'][:16]}")
+    log("feedback loop: host ms per step, " + "; ".join(
+        f"{name} {[round(x, 3) for x in v]}" for name, v in ms.items()))
+    return {"drops": drops, "placement": got["placement"], "info": got["info"],
+            "fingerprints": [got["fingerprint_before"], got["fingerprint_after"]],
+            "profile_before": got["before"], "profile_after": got["after"],
+            "host_ms_per_step": ms}
+
+
+def shuffle_spec(fab: Fabric, cluster: int, k: int) -> NetworkSpec:
+    """The Table-IV shuffle network of benchmarks/routing_throughput.py:
+    cluster c fans into cluster perm(c) through two connect-groups per
+    source (rng seed 17)."""
+    nc = fab.n_cores
+    rng = np.random.default_rng(17)
+    perm = rng.permutation(nc)
+    spec = NetworkSpec(n_neurons=nc * cluster, cluster_size=cluster, k_tags=k)
+    fan = min(4, cluster)
+    for s in range(spec.n_neurons):
+        dst_cl = int(perm[s // cluster])
+        for syn in (0, int(1 + rng.integers(3))):
+            dsts = dst_cl * cluster + rng.choice(cluster, size=fan, replace=False)
+            spec.connect_one_to_many(s, [int(d) for d in dsts], syn)
+    return spec
+
+
+def _shuffle_step(tables, fab, dev, kernel):
+    """One all-spiking fabric step at link capacity 1 (batch 1)."""
+    eng = EventEngine(tables, fabric=fab, fabric_options={"link_capacity": 1, "kernel": kernel},
+                      device=dev)
+    state, spikes, ring, cursor = eng.init_state(batch=1)
+    carry = (state, torch.ones_like(spikes), ring, cursor)
+    zero = torch.zeros((1, tables.n_clusters, tables.k_tags), device=dev)
+    (carry, (spikes, stats)), counts = _counted(lambda: eng.step(carry, zero))
+    _expect_launches(counts, {"fabric_deliver": 1} if kernel else {}, "shuffle step")
+    return (spikes, *carry[2:]), stats, counts
+
+
+def _delayed_dense_weights(tables, model, dev) -> list[torch.Tensor]:
+    """The dense oracle's ``[N, N, 4]`` weights split by the fabric arrival
+    delay of each connection's cluster pair: ``w[d]`` arrives ``d`` steps
+    late."""
+    dense = torch.as_tensor(dense_weights_from_tables(tables), device=dev)
+    cl = torch.arange(tables.n_neurons, device=dev) // tables.cluster_size
+    delay = torch.as_tensor(np.asarray(model.delay_steps), device=dev)[cl[:, None], cl[None, :]]
+    return [dense * (delay == d)[..., None] for d in range(model.max_delay + 1)]
+
+
+def check_retargeted(spec, dev, launched) -> dict:
+    """``retarget`` to 2x2 tiles of 4 cores of 32 neurons, ``save`` under
+    build/, ``load`` with an equal fingerprint, ``entry_table(dev)`` equal to
+    the engine's own entries, and 4 steps of 4 streams through
+    ``fabric_deliver`` equal to the delayed dense oracle, spikes step for
+    step."""
+    geo = Geometry(grid_x=2, grid_y=2, cores_per_tile=4, neurons_per_core=32, k_tags=64)
+    art = retarget(spec, geo)
+    fz = art.feasibility
+    if not fz.feasible or fz.binding != "cores" or fz.utilization["cores"] != 1.0:
+        raise AssertionError(f"retarget to 2x2: {fz.asdict()}")
+    back = CompiledArtifact.load(art.save(str(OUT_DIR / "artifact_2x2")))
+    if back.fingerprint() != art.fingerprint():
+        raise AssertionError("the saved 2x2 artifact loads with another fingerprint")
+    t = back.tables
+    eng = EventEngine(t, fabric=back.geometry.fabric(), queue_capacity=t.n_neurons, device=dev)
+    entries = back.entry_table(dev)
+    for f in dataclasses.fields(entries):
+        if not torch.equal(getattr(entries, f.name), getattr(eng._fabric_entries, f.name)):
+            raise AssertionError(f"entry_table({dev}).{f.name} differs from the engine's entries")
+    w = _delayed_dense_weights(t, eng.fabric_model, dev)
+    rng = np.random.default_rng(SEED)
+    batch, steps = 4, 4
+    state, _, ring, cursor = eng.init_state(batch=batch)
+    spikes = torch.as_tensor((rng.random((batch, t.n_neurons)) < 0.5).astype(np.float32),
+                             device=dev)
+    carry = (state, spikes, ring, cursor)
+    history = [spikes] + [torch.zeros_like(spikes)] * (len(w) - 1)  # newest first
+    o_state, total_spikes = state, 0
+
+    def run():
+        nonlocal carry, history, o_state, total_spikes
+        for step in range(steps):
+            ext = torch.as_tensor((rng.integers(0, 3, (batch, t.n_clusters, t.k_tags)) * 8.0)
+                                  .astype(np.float32), device=dev)
+            carry, (got, stats) = eng.step(carry, ext)
+            drive = stage2_cam_match(ext, eng.tables.cam_tag, eng.tables.cam_syn, t.cluster_size)
+            for d, wd in enumerate(w):
+                drive = drive + torch.einsum("dst,bs->bdt", wd, history[d])
+            o_state, o_spikes = neuron_step(o_state, drive, eng.params)
+            if int(stats.link_dropped.sum()) != 0 or not torch.equal(got, o_spikes):
+                raise AssertionError(f"2x2 artifact: spikes differ from the dense oracle at "
+                                     f"step {step}")
+            torch.testing.assert_close(carry[0].v, o_state.v, rtol=1e-5, atol=1e-7)
+            history = [o_spikes] + history[:-1]
+            total_spikes += int(got.sum())
+
+    _, counts = _counted(run)
+    _expect_launches(counts, {"fabric_deliver": steps}, "2x2 artifact")
+    launched.update(counts)
+    log(f"retarget to 2x2 x 4 cores of 32: feasible, binding {fz.binding} at "
+        f"{fz.utilization['cores']:.0%}; saved and loaded under build/ with fingerprint "
+        f"{back.fingerprint()[:16]}; entry_table({dev}) equals the engine's; {steps} steps of "
+        f"{batch} streams through fabric_deliver equal the dense oracle ({total_spikes} spikes, "
+        f"max_delay {eng.fabric_model.max_delay})")
+    return {"fingerprint": back.fingerprint(), "feasibility": fz.asdict(),
+            "oracle_steps": steps, "spikes": total_spikes}
+
+
+def check_shuffle_network(dev, launched) -> dict:
+    """Compiler v2 on the Table-IV shuffle network: tags and SRAM bits
+    against v1, the all-spiking step at link capacity 1 under v1's default
+    placement and v2's optimized one (kernel leg against plain leg),
+    ``two_stage_deliver`` on the v2 tables against the dense oracle, and the
+    retargeted 2x2 artifact."""
+    fab = Fabric(grid_x=4, grid_y=4, cores_per_tile=4)
+    cluster, k = 8, 64
+    spec = shuffle_spec(fab, cluster, k)
+    t_def = compile_network(spec, fabric=fab)
+    res = compile_network_v2(spec, fabric=fab, seed=0)
+    rep = res.report
+    sizes = {"tags_v2": int(rep.tags_used.sum()), "tags_v1": int(rep.tags_v1.sum()),
+             "sram_bits_v2": res.tables.sram_bits(), "sram_bits_v1": t_def.sram_bits()}
+    if sizes != {"tags_v2": 512, "tags_v1": 1024, "sram_bits_v2": 6144, "sram_bits_v1": 12288}:
+        raise AssertionError(f"shuffle network: {sizes}")
+    steps = {}
+    for label, tables in (("v1_default", t_def), ("v2_optimized", res.tables)):
+        legs = {kernel: _shuffle_step(tables, fab, dev, kernel) for kernel in (True, False)}
+        (kt, ks, kc), (pt, ps, _) = legs[True], legs[False]
+        launched.update(kc)
+        if not all(torch.equal(a, b) for a, b in zip(kt, pt)):
+            raise AssertionError(f"shuffle {label}: kernel and plain legs differ (spikes, ring)")
+        for f in ("dropped", "link_dropped", "delivered", "hops"):
+            if not torch.equal(getattr(ks, f), getattr(ps, f)):
+                raise AssertionError(f"shuffle {label}: {f} differs between the legs")
+        steps[label] = {"link_dropped": int(ks.link_dropped.sum()),
+                        "delivered": float(ks.delivered.sum()), "hops": float(ks.hops.sum())}
+        steps[label]["hops_per_event"] = steps[label]["hops"] / steps[label]["delivered"]
+    drops = {label: v["link_dropped"] for label, v in steps.items()}
+    if drops != SHUFFLE_DROPS:
+        raise AssertionError(f"shuffle network link drops {drops}, the JAX package gives "
+                             f"{SHUFFLE_DROPS}")
+    log(f"shuffle network (4x4 x 4 cores, clusters of 8, K = 64): v2 {sizes['tags_v2']} tags and "
+        f"{sizes['sram_bits_v2']} SRAM bits against v1's {sizes['tags_v1']} and "
+        f"{sizes['sram_bits_v1']}; all-spiking step at link capacity 1, kernel and plain legs "
+        f"equal: " + "; ".join(f"{label} {v['link_dropped']} link drops, {v['delivered']:.0f} "
+                               f"delivered, {v['hops_per_event']:.3f} hops/event"
+                               for label, v in steps.items()))
+
+    # two_stage_deliver on the v2 tables against the dense oracle
+    t = res.tables
+    tabs = [torch.as_tensor(getattr(t, f), device=dev)
+            for f in ("src_tag", "src_dest", "cam_tag", "cam_syn")]
+    rng = np.random.default_rng(SEED)
+    spikes = torch.as_tensor((rng.random((POOL, t.n_neurons)) < 0.3).astype(np.float32),
+                             device=dev)
+    dense = torch.as_tensor(dense_weights_from_tables(t), device=dev)
+    oracle = torch.einsum("dst,bs->bdt", dense, spikes)
+    for backend, kernel in (("cuda", "cam_match"), ("fused", "fused_deliver"),
+                            ("reference", None)):
+        drive, counts = _counted(lambda: two_stage_deliver(spikes, *tabs, cluster, k,
+                                                           backend=backend))
+        _expect_launches(counts, {kernel: 1} if kernel else {}, f"two_stage_deliver {backend}")
+        launched.update(counts)
+        if not torch.equal(drive, oracle):
+            raise AssertionError(f"two_stage_deliver on {backend}: drive differs from the dense "
+                                 f"oracle by {(drive - oracle).abs().max()}")
+    log(f"two_stage_deliver on the v2 shuffle tables ({POOL} streams, 30% spiking): cuda, "
+        f"fused and reference equal the dense oracle, bit for bit")
+    return {"sizes": sizes, "steps": steps, "report_mean_hops": rep.mean_hops,
+            "retarget": check_retargeted(spec, dev, launched)}
+
+
+AUTOTUNE_KERNEL = {"cuda": "cam_match", "fused": "fused_deliver"}  # served backend -> kernel
+
+
+def check_autotuned_pool(dev, v1, launched) -> dict:
+    """``build_poker_engine(backend="auto")`` at activity 0.1 and B = 32,
+    built twice to the same decision: every candidate's µs, then the 64
+    sessions on the first, equal to the fixed legs', launching the winner's
+    kernel once per step whichever candidate wins (``cam_match`` for
+    ``dense`` and ``queued``, ``fused_deliver`` for ``fused``)."""
+    cc = v1["cc"]
+    engines = [build_poker_engine(cc.tables, backend="auto", device=dev,
+                                  autotune={"activity": 0.1, "batch": POOL})
+               for _ in range(2)]
+    engine = engines[0]
+    d = engine.autotune_decision
+    if engines[1].autotune_decision.token() != d.token():
+        raise AssertionError(f"autotune decided {d.token()}, then "
+                             f"{engines[1].autotune_decision.token()} on a rebuild")
+    kernel = AUTOTUNE_KERNEL.get(engine.backend.name)
+    if kernel is None:
+        raise AssertionError(f"autotuned pool ({d.winner}) serves on backend "
+                             f"{engine.backend.name!r}, which launches no kernel")
+    r = _serve_leg(cc, dev, "auto", None, v1["suits"], kernel, engine=engine)
+    launched.update(r["launches"])
+    if r["results"] != v1["results"]["fused"]:
+        raise AssertionError(f"autotuned pool ({d.winner}): sessions differ from the fixed legs'")
+    pool = AerSessionPool(cc, engine, AerServeConfig(pool_size=POOL))
+    for i, e in enumerate(engines):
+        de = e.autotune_decision
+        log(f"autotune build {i + 1} (activity 0.1, B = {POOL}): winner {de.winner} (backend "
+            f"{e.backend.name}, dense {de.dense}), "
+            + ", ".join(f"{c} {us:.1f} us" for c, us in de.measurements))
+    log(f"autotune: {SESSIONS} sessions on build 1 equal the fixed legs', accuracy "
+        f"{r['accuracy']:.4f}, launches {r['launches']}; pool fingerprint "
+        f"{pool.fingerprint()[:16]} ({d.token()})")
+    return {"winner": d.winner, "backend": engine.backend.name, "dense": d.dense,
+            "token": d.token(), "measurements_us": dict(d.measurements),
+            "rebuild": {"token": engines[1].autotune_decision.token(),
+                        "measurements_us": dict(engines[1].autotune_decision.measurements)},
+            "fingerprint": pool.fingerprint(),
+            **{k: r[k] for k in ("accuracy", "latency_p50_steps", "sessions_per_s",
+                                 "engine_steps", "launches")}}
+
+
+def phase_compiler(dev, v1) -> dict[str, int]:
+    """The compiler path: compiler v2 on Table-V, the feedback loop, the
+    shuffle network with its retargeted artifact, and the autotuned pool.
+    Each part sets the launch counts to 0 just before it and reads them just
+    after; their sum must launch every kernel of the path."""
+    launched: collections.Counter = collections.Counter()
+    out = {"table_v": check_table_v_v2(dev, v1, launched),
+           "feedback_loop": check_feedback_loop(dev, launched),
+           "shuffle": check_shuffle_network(dev, launched),
+           "autotune": check_autotuned_pool(dev, v1, launched)}
+    missing = [name for name in COMPILER_PATH_KERNELS if launched[name] == 0]
+    if missing:
+        raise AssertionError(f"compiler phase: {missing} never launched")
+    out["launches"] = dict(launched)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "chip_smoke_compiler.json").write_text(json.dumps(out, indent=1))
+    log(f"compiler phase: launches {dict(launched)}")
+    return dict(launched)
 
 
 # ---------------------------------------------------------------------------
@@ -1141,7 +1573,8 @@ def main() -> None:
     dev = torch.device("cuda")
     phase_card_and_build()
     kernels = phase_kernels(dev)
-    launches = phase_serving(dev)
+    launches, v1 = phase_serving(dev)
+    compiler_launches = phase_compiler(dev, v1)
     launches.update(phase_lm(dev))
     if set(launches) != set(kernels):
         raise AssertionError(f"serving legs launched {sorted(launches)}, kernels {sorted(kernels)}")
@@ -1149,6 +1582,7 @@ def main() -> None:
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the serving path")
         kernels[name]["launches"] = n
+        kernels[name]["launches_compiler_phase"] = compiler_launches.get(name, 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = [{**{k: v[k] for k in keys}, "kernel_ms": v["ms"],

@@ -21,6 +21,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core.compiler import CompileReport, build_report
 from repro_torch.core.neuron import NeuronParams
 from repro_torch.core.tags import NetworkSpec, RoutingTables, SynapseType, compile_network
 
@@ -67,6 +68,8 @@ class CompiledCnn:
     pool: tuple[int, int]
     out: tuple[int, int]
     conv_clusters: tuple[int, ...]
+    # compiler-v2 occupancy report (compile_poker_cnn(with_report=True))
+    report: CompileReport | None = None
 
     def input_activity(self, events_yx, on_invalid: str = "raise") -> np.ndarray:
         """DVS events -> external tag activity (numpy float32).
@@ -163,15 +166,11 @@ def compile_poker_cnn(
 
     ``fc_select``: [n_classes, <=64] pool-neuron indices feeding each class
     population (the offline-Hebbian selection). Default: class c reads its
-    own feature map's 64 pool neurons. ``with_report=True`` (the compiler-v2
-    occupancy report) comes with the compiler v2 slice and raises
-    ``NotImplementedError`` here.
+    own feature map's 64 pool neurons. ``allocator`` is ``"greedy"`` (v1)
+    or ``"reuse"`` (v2; byte-equal tables here, since no two allocation
+    units share a source set). ``with_report=True`` attaches the compiler-v2
+    :class:`~repro_torch.core.compiler.CompileReport` of the spliced tables.
     """
-    if with_report:
-        raise NotImplementedError(
-            "compile_poker_cnn(with_report=True) needs the CompileReport of "
-            "the compiler v2 slice of the port"
-        )
     c = cfg
     n_conv = c.n_kernels * c.conv_hw * c.conv_hw  # 1024
     pool_hw = c.conv_hw // c.pool
@@ -261,6 +260,7 @@ def compile_poker_cnn(
                     cam_syn[neuron, slot] = syn
     tables = dataclasses.replace(tables, cam_tag=cam_tag, cam_syn=cam_syn)
 
+    report = build_report(spec, tables) if with_report else None
     return CompiledCnn(
         tables=tables,
         cfg=c,
@@ -268,4 +268,5 @@ def compile_poker_cnn(
         pool=(pool0, pool0 + n_pool),
         out=(out0, out0 + n_out),
         conv_clusters=conv_clusters,
+        report=report,
     )

@@ -18,13 +18,26 @@ per-neuron synaptic drive ``[..., N, 4]``:
 On CPU tensors the kernel backends run their kernels' plain versions.
 ``queue_capacity`` compacts active spikes into a fixed-capacity AER queue
 before stage 1; ``with_stats=True`` also returns a :class:`DeliveryStats`.
-Backends are selected by name through :func:`get_backend`.
+Backends are selected by name through :func:`get_backend`;
+:func:`backend_deliver` is the signature-tolerant ``deliver`` call of
+``two_stage_deliver``.
+
+:func:`autotune_backend` (``EventEngine(backend="auto")``) measures the
+dense / queued / fused crossover at one (activity, batch) point on the
+engine's device and returns an :class:`AutotuneDecision`, as ``repro``'s
+autotuner does: the same candidates, ``tol`` rule and lossless-queue alias,
+and on the CPU the same mapping. On the card the plain stage 2 is never
+chosen: ``dense`` and ``queued`` are served by the ``cuda`` backend.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
+import time
 
+import numpy as np
 import torch
 
 from repro_torch.core import routing
@@ -46,9 +59,14 @@ __all__ = [
     "CudaBackend",
     "FusedBackend",
     "FabricBackend",
+    "AutotuneDecision",
     "advance_inflight",
+    "autotune_backend",
+    "autotune_candidates",
+    "backend_deliver",
     "register_backend",
     "get_backend",
+    "served_backend",
     "available_backends",
 ]
 
@@ -104,6 +122,62 @@ def get_backend(spec: "str | DispatchBackend | None" = "reference") -> "Dispatch
             f"unknown dispatch backend {spec!r}; available: {available_backends()}"
         ) from None
     return cls()
+
+
+@functools.lru_cache(maxsize=None)
+def _deliver_kwargs(cls: type) -> frozenset[str] | None:
+    """Names ``cls.deliver`` accepts as keywords, worked out once per
+    backend class; ``None`` means it takes ``**kwargs``."""
+    sig = inspect.signature(cls.deliver)
+    if any(p.kind is inspect.Parameter.VAR_KEYWORD for p in sig.parameters.values()):
+        return None
+    return frozenset(sig.parameters)
+
+
+def backend_deliver(
+    backend: "DispatchBackend",
+    spikes: torch.Tensor,
+    src_tag: torch.Tensor,
+    src_dest: torch.Tensor,
+    cam_tag: torch.Tensor,
+    cam_syn: torch.Tensor,
+    cluster_size: int,
+    k_tags: int,
+    external_activity: torch.Tensor | None = None,
+    queue_capacity: int | None = None,
+    syn_onehot: torch.Tensor | None = None,
+    with_stats: bool = False,
+):
+    """Signature-tolerant ``deliver`` call (``two_stage_deliver``'s).
+
+    A backend whose ``deliver`` lacks the ``queue_capacity`` /
+    ``syn_onehot`` / ``with_stats`` keywords keeps working: they are
+    forwarded only when accepted. ``syn_onehot`` is an optimization hint and
+    is dropped silently; ``with_stats`` is synthesized (zero drops — such a
+    backend is always dense); asking it for ``queue_capacity`` is a semantic
+    request it cannot honor and raises.
+    """
+    accepted = _deliver_kwargs(type(backend))
+    kwargs = {"external_activity": external_activity}
+    for name, value in (
+        ("queue_capacity", queue_capacity),
+        ("syn_onehot", syn_onehot),
+        ("with_stats", with_stats),
+    ):
+        if accepted is None or name in accepted:
+            kwargs[name] = value
+        elif name == "queue_capacity" and queue_capacity is not None:
+            raise ValueError(
+                f"dispatch backend {backend.name!r} predates event-sparse "
+                "delivery and does not support queue_capacity"
+            )
+    out = backend.deliver(
+        spikes, src_tag, src_dest, cam_tag, cam_syn, cluster_size, k_tags, **kwargs
+    )
+    if with_stats and "with_stats" not in kwargs:
+        dropped = torch.zeros(spikes.shape[:-1], dtype=torch.int32, device=spikes.device)
+        return out, DeliveryStats(dropped=dropped)
+    return out
 
 
 def _stage1_activity(
@@ -184,11 +258,14 @@ class CudaBackend(DispatchBackend):
     """Stage 2 on the hand-written ``cam_match`` CUDA kernel.
 
     The kernel reads the CAM synapse types directly; the precomputed
-    one-hot is a plain-version optimization and is ignored here.
+    one-hot is a plain-version optimization and is ignored here. The kernel
+    reads the activity as one dense block: the stage-1 scatter alone (no
+    external activity added) leaves a strided view, so it is made
+    contiguous first (free when it already is).
     """
 
     def cam_match(self, activity, cam_tag, cam_syn, cluster_size, syn_onehot=None):
-        return cam_ops.cam_match(activity, cam_tag, cam_syn, cluster_size)
+        return cam_ops.cam_match(activity.contiguous(), cam_tag, cam_syn, cluster_size)
 
 
 @register_backend("fused")
@@ -483,3 +560,197 @@ class FabricBackend(DispatchBackend):
         if with_stats:
             return drive, stats
         return drive
+
+
+# ---------------------------------------------------------------------------
+# dispatch autotuner: measured dense/queued/fused crossover (DESIGN.md §18)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AutotuneDecision:
+    """Outcome of one :func:`autotune_backend` pass.
+
+    ``winner`` is the measured-fastest candidate; ``backend`` / ``dense``
+    are how the engine realizes it on the device it was tuned for
+    (registry backend name, :func:`served_backend`, + whether the AER queue
+    compaction is bypassed — the dense path still reports zero-drop stats,
+    so the step's output contract is unchanged). ``measurements`` records
+    every candidate's per-call time in µs (:func:`_time_calls_us`: device
+    time on the card, host time on the CPU), in candidate order, so the decision is auditable and the pool fingerprint
+    can carry it.
+    """
+
+    winner: str
+    backend: str
+    dense: bool
+    activity: float
+    batch: int
+    measurements: tuple[tuple[str, float], ...]
+
+    def token(self) -> str:
+        """Compact fingerprint component (decision, not timings)."""
+        return f"autotune:{self.winner}:act{self.activity:g}:B{self.batch}"
+
+
+# candidate -> (registry backend, bypass queue compaction), repro's mapping
+_AUTOTUNE_IMPL = {
+    "dense": ("reference", True),
+    "queued": ("reference", False),
+    "fused": ("fused", False),
+    # fabric_ring is measurable only via an injected measurement (timing it
+    # needs a ring carry); it maps onto the fabric backend's default mode
+    "fabric_ring": ("fabric", False),
+}
+# calls per round on the card (device time, averaged over every round's calls)
+_CALLS_PER_ROUND = 25
+
+
+def autotune_candidates() -> tuple[str, ...]:
+    return tuple(_AUTOTUNE_IMPL)
+
+
+def served_backend(name: str, device: torch.device | str) -> str:
+    """The registry backend that serves ``name`` on ``device``: on the card
+    the plain stage 2 (``reference``) of an autotuned ``dense`` or
+    ``queued`` winner is served by the ``cam_match`` kernel (``cuda``),
+    which computes the same drive; elsewhere ``name`` itself."""
+    if name == "reference" and torch.device(device).type == "cuda":
+        return "cuda"
+    return name
+
+
+def _time_calls_us(fns: dict, spikes: torch.Tensor, iters: int) -> dict[str, float]:
+    """Per-call time in µs of each ``fns[c](spikes)``.
+
+    On the card: the device time of the kernels and copies one call puts
+    on the card, from torch.profiler, averaged over ``iters`` rounds of
+    ``_CALLS_PER_ROUND`` calls. The candidates issue about as many device
+    ops each, so their host time differs by less than the host's jitter
+    and its ranking flips from run to run; their device work does not.
+    Raises if the trace shows no device time. On the CPU: the best of
+    ``iters`` single calls on the host clock. Every candidate's warm-up call
+    (which builds the kernel on first use) runs before any timing."""
+    for fn in fns.values():
+        fn(spikes)
+    n = max(1, int(iters))
+    if not spikes.is_cuda:
+        best = dict.fromkeys(fns, float("inf"))
+        for _ in range(n):
+            for cand, fn in fns.items():
+                t0 = time.perf_counter()
+                fn(spikes)
+                best[cand] = min(best[cand], (time.perf_counter() - t0) * 1e6)
+        return best
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(spikes.device)
+    calls = n * _CALLS_PER_ROUND
+    out = {}
+    for cand, fn in fns.items():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn(spikes)
+            torch.cuda.synchronize(spikes.device)
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        if busy <= 0:
+            raise RuntimeError(f"autotune: the trace of {cand!r} shows no device time")
+        out[cand] = busy / calls
+    return out
+
+
+def autotune_backend(
+    src_tag,
+    src_dest,
+    cam_tag,
+    cam_syn,
+    cluster_size: int,
+    k_tags: int,
+    *,
+    activity: float = 0.1,
+    batch: int = 8,
+    queue_capacity: int | None = None,
+    candidates: tuple[str, ...] = ("dense", "queued", "fused"),
+    measure: dict[str, float] | None = None,
+    iters: int = 3,
+    seed: int = 0,
+    tol: float = 0.05,
+    device: torch.device | str = "cuda",
+) -> AutotuneDecision:
+    """Measure the dense/queued/fused crossover at one (activity, B) point.
+
+    Times each candidate's delivery on ``device`` over a deterministic
+    synthetic spike batch (``batch`` streams at ``activity`` fraction
+    active, drawn with numpy from ``seed``) and returns the winner as an
+    :class:`AutotuneDecision`. ``measure`` injects known timings per
+    candidate (µs): injected candidates are not re-timed, so a fully
+    injected call is deterministic and timing-free. The winner is the
+    *earliest* candidate within ``tol`` of the measured fastest, not the
+    strict argmin, so wall-clock jitter at a genuine crossover cannot flip
+    the decision between runs (exact ties break in ``candidates`` order).
+
+    ``queue_capacity`` should be the engine's actual queue depth. With
+    ``None`` (or a capacity at/above the neuron count) the queued path is
+    the dense path (the lossless-queue shortcut), so the tuner records
+    dense's timing for it instead of racing two timings of the same program.
+    On the card, ``dense`` and ``queued`` run the ``cam_match`` kernel and
+    ``fused`` the ``fused_deliver`` kernel, and each is timed by the device
+    work it puts on the card (:func:`_time_calls_us`).
+    """
+    for cand in candidates:
+        if cand not in _AUTOTUNE_IMPL:
+            raise ValueError(
+                f"unknown autotune candidate {cand!r}; known: {autotune_candidates()}"
+            )
+    measure = dict(measure or {})
+    timed = [c for c in candidates if c not in measure]
+    if timed:
+        from repro_torch.core.two_stage import precompute_syn_onehot
+
+        dev = resolve_device(device)
+        n = src_tag.shape[0]
+        rng = np.random.default_rng(seed)
+        spikes = torch.as_tensor(
+            (rng.random((int(batch), n)) < float(activity)).astype(np.float32), device=dev
+        )
+        st, sd, ct, cs = (
+            torch.as_tensor(a, device=dev).to(torch.int32)
+            for a in (src_tag, src_dest, cam_tag, cam_syn)
+        )
+        onehot = precompute_syn_onehot(cs)
+        lossless = queue_capacity is None or int(queue_capacity) >= n
+        alias_queued = (
+            lossless and "queued" in timed
+            and ("dense" in measure or "dense" in timed)
+        )
+        fns = {}
+        for cand in timed:
+            if cand == "queued" and alias_queued:
+                continue
+            if cand == "fabric_ring":
+                raise ValueError(
+                    "fabric_ring can only be autotuned via an injected "
+                    "measurement (measure={'fabric_ring': us})"
+                )
+            bname, dense = _AUTOTUNE_IMPL[cand]
+            be = get_backend(served_backend(bname, dev))
+            qc = None if dense else queue_capacity
+
+            def fn(s, _be=be, _qc=qc):
+                return _be.deliver(s, st, sd, ct, cs, cluster_size, k_tags,
+                                   queue_capacity=_qc, syn_onehot=onehot)
+
+            fns[cand] = fn
+        measure.update(_time_calls_us(fns, spikes, iters))
+        if alias_queued:
+            measure["queued"] = measure["dense"]
+    best = min(measure[c] for c in candidates)
+    winner = next(c for c in candidates if measure[c] <= (1.0 + tol) * best)
+    backend, dense = _AUTOTUNE_IMPL[winner]
+    return AutotuneDecision(
+        winner=winner,
+        backend=served_backend(backend, device),
+        dense=dense,
+        activity=float(activity),
+        batch=int(batch),
+        measurements=tuple((c, float(measure[c])) for c in candidates),
+    )

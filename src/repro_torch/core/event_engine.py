@@ -15,6 +15,12 @@ FIFOs can drop. Fabric mode carries the delay line: a time-wheel ring and
 its cursor by default, the roll buffer with ``fabric_options={"ring":
 False}``.
 
+``backend="auto"`` measures the dense / queued / fused crossover on the
+engine's device (``dispatch.autotune_backend``) or honors an injected
+``AutotuneDecision``, and builds the winner (on the card through a kernel
+backend, never the plain stage 2); a ``dense`` winner bypasses the AER
+queue compaction while keeping the ``(spikes, stats)`` output.
+
 ``EventEngine.reset_slots(carry, mask)`` restores masked slots to fresh
 state so a session pool can admit and evict tenants independently.
 
@@ -35,7 +41,9 @@ from repro_torch.core.dispatch import (
     DeliveryStats,
     DispatchBackend,
     FabricBackend,
+    autotune_backend,
     get_backend,
+    served_backend,
 )
 from repro_torch.core.neuron import NeuronParams, NeuronState
 from repro_torch.core.routing import Fabric, default_tile_of_cluster
@@ -83,7 +91,10 @@ class EventEngine:
         device: torch.device | str = "cuda",
         fabric: Fabric | FabricBackend | None = None,
         fabric_options: dict | None = None,
+        autotune: dict | None = None,
     ):
+        if not isinstance(tables, RoutingTables) and hasattr(tables, "tables"):
+            tables = tables.tables  # CompileResult / CompiledArtifact
         self.device = resolve_device(device)
         self.params = params or NeuronParams()
         self.cluster_size = tables.cluster_size
@@ -93,6 +104,12 @@ class EventEngine:
         if queue_capacity is not None and queue_capacity <= 0:
             raise ValueError(f"queue_capacity must be positive, got {queue_capacity}")
         self.queue_capacity = queue_capacity
+        self.autotune_decision = None
+        self._autotune_dense = False
+        if backend == "auto":
+            backend = self._autotune(tables, fabric, autotune)
+        elif autotune:
+            raise ValueError("autotune options require backend='auto'")
         self.backend = get_backend(backend)
         self.fabric_backend = None
         self.fabric_model = None
@@ -123,6 +140,34 @@ class EventEngine:
                 tables.src_tag, tables.src_dest, self.cluster_size, self.k_tags,
                 device=self.device,
             )
+
+    def _autotune(self, tables, fabric, autotune) -> str:
+        """Resolve ``backend="auto"``: measure (or take the injected
+        decision), record it, and return the registry name that serves the
+        winner on this engine's device (:func:`served_backend`)."""
+        if fabric is not None:
+            raise ValueError(
+                "backend='auto' tunes the dense/queued/fused dispatch "
+                "path; fabric engines deliver through the fabric model — "
+                "pass an explicit backend"
+            )
+        opts = dict(autotune or {})
+        decision = opts.pop("decision", None)
+        if decision is None:
+            opts.setdefault("queue_capacity", self.queue_capacity)
+            opts.setdefault("device", self.device)
+            decision = autotune_backend(
+                tables.src_tag, tables.src_dest, tables.cam_tag, tables.cam_syn,
+                self.cluster_size, self.k_tags, **opts,
+            )
+        elif opts:
+            raise ValueError(
+                "autotune={'decision': ...} is exclusive with tuning "
+                f"options {sorted(opts)}"
+            )
+        self.autotune_decision = decision
+        self._autotune_dense = bool(decision.dense)
+        return served_backend(decision.backend, self.device)
 
     def _fabric_backend(self, tables, fabric, fabric_options) -> FabricBackend:
         """The fabric backend, checked against this engine's dt and the
@@ -234,7 +279,9 @@ class EventEngine:
             self.cluster_size,
             self.k_tags,
             external_activity=input_activity,
-            queue_capacity=self.queue_capacity,
+            # an autotuned "dense" winner bypasses compaction; the output
+            # contract still follows queue_capacity (stats read zero drops)
+            queue_capacity=None if self._autotune_dense else self.queue_capacity,
             syn_onehot=t.cam_syn_onehot,
             with_stats=True,
         )

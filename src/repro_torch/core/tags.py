@@ -1,6 +1,7 @@
 """Network compiler: connectivity -> two-stage routing tables (paper §II/§III).
 
-Counterpart of ``repro.core.tags`` (the v1 "greedy" allocator). The compiler
+Counterpart of ``repro.core.tags`` (the v1 "greedy" allocator, and the v2
+"reuse" allocator through core/compiler.py). The compiler
 emits the paper's distributed routing state as numpy int32 arrays:
 
   source (SRAM) table, one row per neuron  — stage-1 point-to-point entries
@@ -12,10 +13,11 @@ emits the paper's distributed routing state as numpy int32 arrays:
                                         2: subtractive-inh, 3: shunting-inh}
 
 An event (tag t -> cluster c) is broadcast to ALL neurons of cluster c and
-accepted by every CAM word matching t. Sources share a tag only where the
-caller asks for it (``shared_tag=True``); otherwise every (source, cluster)
-pair gets a fresh tag, and exceeding K tags in any cluster is a compile
-error.
+accepted by every CAM word matching t. Under the v1 ("greedy") allocator
+sources share a tag only where the caller asks for it (``shared_tag=True``);
+otherwise every (source, cluster) pair gets a fresh tag, and exceeding K
+tags in any cluster is a compile error. The v2 ("reuse") allocator of
+core/compiler.py also merges units whose source sets are identical.
 
 Tag numbers follow from group order, ``sorted`` cluster order and
 ``itertools.groupby`` runs exactly as in the reference, so the tables are
@@ -135,6 +137,20 @@ class RoutingTables:
     def n_clusters(self) -> int:
         return self.n_neurons // self.cluster_size
 
+    # -- paper bookkeeping -------------------------------------------------
+    def sram_bits(self) -> int:
+        """Occupied source-memory bits: entries * (log2 K + log2 n_clusters)."""
+        ent = int((self.src_tag >= 0).sum())
+        word = int(np.ceil(np.log2(max(2, self.k_tags)))) + int(
+            np.ceil(np.log2(max(2, self.n_clusters)))
+        )
+        return ent * word
+
+    def cam_bits(self) -> int:
+        """Occupied target-memory bits: CAM words * (log2 K + 2 syn-type bits)."""
+        ent = int((self.cam_tag >= 0).sum())
+        return ent * (int(np.ceil(np.log2(max(2, self.k_tags)))) + 2)
+
     def fingerprint(self) -> str:
         """Content hash of the compiled routing state.
 
@@ -213,16 +229,20 @@ def expand_units(spec: NetworkSpec) -> list[AllocUnit]:
 
 
 def _allocate_unit_tags(spec: NetworkSpec, units: list[AllocUnit], allocator: str) -> list[int]:
-    """Assign a tag to every unit, in unit order."""
+    """Assign a tag to every unit, in unit order.
+
+    ``"greedy"`` (v1) burns one fresh tag per unit. ``"reuse"`` (v2) colors
+    the per-cluster conflict graph so same-source-set units share a tag
+    (core/compiler.py).
+    """
     if allocator == "reuse":
-        raise NotImplementedError(
-            "allocator='reuse' (conflict-graph tag sharing) comes with the "
-            "compiler v2 slice of the port; use allocator='greedy'"
-        )
+        from repro_torch.core.compiler import allocate_tags_reuse  # compiler imports tags
+
+        return allocate_tags_reuse(spec, units)[0]
     if allocator != "greedy":
         raise ValueError(
             f"unknown allocator {allocator!r}; available: 'greedy' (v1, one "
-            "tag per unit)"
+            "tag per unit), 'reuse' (v2 conflict-graph tag sharing)"
         )
     next_tag = np.zeros(spec.n_clusters, dtype=np.int64)
     tags = []
@@ -247,7 +267,13 @@ def compile_network(
     tile_of_cluster: np.ndarray | Sequence[int] | None = None,
     allocator: str = "greedy",
 ) -> RoutingTables:
-    """Tag allocation + table materialization (paper Appendix A), greedy v1.
+    """Tag allocation + table materialization (paper Appendix A).
+
+    ``allocator`` selects the tag assignment: ``"greedy"`` (v1, a fresh tag
+    per allocation unit) or ``"reuse"`` (v2, conflict-graph coloring that
+    lets units with identical source sets share one tag; see
+    core/compiler.py, whose ``compile_network_v2`` adds traffic-aware
+    placement and a ``CompileReport`` on top of this function).
 
     With ``fabric`` (a :class:`~repro_torch.core.routing.Fabric`) set the
     tables additionally carry a cluster->tile placement

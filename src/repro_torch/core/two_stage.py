@@ -24,6 +24,9 @@ only the queued events' SRAM entries.
 (DESIGN.md §11): entries binned by tile pair, per-link FIFO arbitration with
 :func:`dispatch_slots`, and a delay-indexed buffer (the roll path, and the
 ring oracle with ``cursor=``).
+
+:func:`two_stage_deliver` is the one-call delivery (spikes -> drive) through
+any dispatch backend.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ __all__ = [
     "stage1_route_events",
     "precompute_syn_onehot",
     "stage2_cam_match",
+    "two_stage_deliver",
 ]
 
 N_SYN_TYPES = 4  # fast-exc, slow-exc, subtractive-inh, shunting-inh
@@ -411,3 +415,44 @@ def stage2_cam_match(
     if syn_onehot is None:
         syn_onehot = precompute_syn_onehot(cam_syn, dtype=vals.dtype)
     return torch.einsum("...ns,nst->...nt", vals, syn_onehot.to(vals.dtype))
+
+
+def two_stage_deliver(
+    spikes: torch.Tensor,
+    src_tag: torch.Tensor,
+    src_dest: torch.Tensor,
+    cam_tag: torch.Tensor,
+    cam_syn: torch.Tensor,
+    cluster_size: int,
+    k_tags: int,
+    external_activity: torch.Tensor | None = None,
+    backend: str | object = "reference",
+    queue_capacity: int | None = None,
+    syn_onehot: torch.Tensor | None = None,
+    with_stats: bool = False,
+):
+    """Full event delivery: spikes -> synaptic drive per neuron & synapse type.
+
+    ``external_activity`` injects input events directly as tag activity.
+    ``backend`` selects the dispatch implementation by name or instance
+    (core/dispatch.py registry); on CUDA tensors the kernel backends launch
+    their kernels. ``queue_capacity`` enables event-sparse delivery through a
+    fixed-capacity AER queue; with ``with_stats=True`` the return value is
+    ``(drive, DeliveryStats)`` carrying the queue's drop counter.
+    """
+    from repro_torch.core.dispatch import backend_deliver, get_backend  # dispatch imports us
+
+    return backend_deliver(
+        get_backend(backend),
+        spikes,
+        src_tag,
+        src_dest,
+        cam_tag,
+        cam_syn,
+        cluster_size,
+        k_tags,
+        external_activity=external_activity,
+        queue_capacity=queue_capacity,
+        syn_onehot=syn_onehot,
+        with_stats=with_stats,
+    )

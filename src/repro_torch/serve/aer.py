@@ -12,6 +12,13 @@ mode or over the executable fabric (``build_poker_engine(tables,
   * **independent admit/evict**: a departing tenant's slot is wiped with
     ``EventEngine.reset_slots`` before reuse.
 
+A fabric engine built with ``per_link_stats`` also feeds every step's
+per-cluster-pair delivered counts and per-link drops into the pool's
+:class:`~repro_torch.core.compiler.TrafficProfile` (``pool.profile``), the
+measured traffic that ``optimize_placement`` re-places against. The pool's
+``fingerprint()`` identifies its serving geometry as ``repro``'s does for a
+single resident model named ``"default"``.
+
 Input enters through ``CompiledCnn.input_activity`` with an explicit
 malformed-packet policy (``on_invalid``); under ``"raise"`` a bad packet
 faults its session, not the pool. Readout is the paper's majority rule over
@@ -21,6 +28,7 @@ per-session output-population spike counts, kept on the host in float64.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from collections import deque
 
 import numpy as np
@@ -32,7 +40,8 @@ from repro_torch.core.cnn import (
     hebbian_readout_select,
     poker_neuron_params,
 )
-from repro_torch.core.event_engine import EventEngine
+from repro_torch.core.compiler import TrafficProfile
+from repro_torch.core.event_engine import DeliveryStats, EventEngine
 from repro_torch.core.routing import Fabric
 from repro_torch.core.tags import RoutingTables
 from repro_torch.data.pipeline import DvsStreamSource, symbol_dvs_events
@@ -63,29 +72,35 @@ def build_poker_engine(
     backend: str = "reference",
     device: torch.device | str = "cuda",
     fabric_options: dict | None = None,
+    autotune: dict | None = None,
 ) -> EventEngine:
     """Event engine at the §V serving operating point for a dispatch backend.
 
-    ``backend`` is a registry name (``reference`` / ``cuda`` / ``fused``) or
+    ``backend`` is a registry name (``reference`` / ``cuda`` / ``fused``),
+    ``"auto"`` (the dispatch autotuner, configured by ``autotune``: the
+    keywords of ``autotune_backend`` or ``{"decision": ...}``), or
     ``"fabric"`` for executable-mesh delivery on the default 3x3-chip board
     geometry, configured by ``fabric_options`` (``FabricBackend`` keywords,
-    e.g. ``link_capacity``, ``ring`` or ``kernel``). The AER queue is sized
-    lossless for this workload (``queue_capacity = N``), so the
-    ``reference`` and ``cuda`` backends take the dense stage-1 path and
-    ``fused`` queues every active source.
+    e.g. ``link_capacity``, ``ring``, ``per_link_stats`` or ``kernel``). The
+    AER queue is sized lossless for this workload (``queue_capacity = N``),
+    so the ``reference`` and ``cuda`` backends take the dense stage-1 path
+    and ``fused`` queues every active source.
     """
     if not isinstance(tables, RoutingTables) and hasattr(tables, "tables"):
         tables = tables.tables
     params = poker_neuron_params()
     q_cap = tables.n_neurons
     if backend == "fabric":
+        if autotune is not None:
+            raise ValueError("autotune applies to backend='auto', not fabric")
         return EventEngine(
             tables, params, queue_capacity=q_cap, device=device, fabric=Fabric(),
             fabric_options=dict(fabric_options or {}),
         )
     if fabric_options is not None:
         raise ValueError(f"fabric_options need the fabric backend, got {backend!r}")
-    return EventEngine(tables, params, backend=backend, queue_capacity=q_cap, device=device)
+    return EventEngine(tables, params, backend=backend, queue_capacity=q_cap, device=device,
+                       autotune=autotune)
 
 
 def tune_poker_readout(device: torch.device | str, rng: np.random.Generator) -> np.ndarray:
@@ -159,6 +174,18 @@ class SessionResult:
         return None if self.label is None else self.prediction == self.label
 
 
+def _registry_fingerprint(models: dict[str, RoutingTables]) -> str:
+    """sha256 over (name, table fingerprint) pairs in slab order, as
+    ``repro``'s ``ModelRegistry.fingerprint`` hashes its resident models."""
+    h = hashlib.sha256()
+    for name, t in models.items():
+        h.update(name.encode())
+        h.update(b"\x00")
+        h.update(t.fingerprint().encode())
+        h.update(b"\x01")
+    return h.hexdigest()
+
+
 def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
     """Copy tensors to the host with one wait on the device."""
     host = [t.to("cpu", non_blocking=True) for t in tensors]
@@ -175,8 +202,8 @@ class AerSessionPool:
     :func:`build_poker_engine` does). The carry is allocated once at
     ``pool_size`` on the engine's device and reset per slot on eviction;
     session bookkeeping stays on the host. A fabric engine with
-    ``per_link_stats`` is served with its link drops summed per session;
-    ``repro``'s traffic profile of the pool is not ported yet.
+    ``per_link_stats`` is served with its link drops summed per session and
+    feeds :attr:`profile` (``None`` for every other engine).
     """
 
     def __init__(self, cc: CompiledCnn, engine: EventEngine, cfg: AerServeConfig):
@@ -198,6 +225,27 @@ class AerSessionPool:
         self.n_steps = 0  # engine steps taken (all slots advance together)
         self.last_stats = None  # DeliveryStats of the most recent step()
         self._zero_act = np.zeros((engine.n_clusters, engine.k_tags), dtype=np.float32)
+        # observed-traffic feedback (DESIGN.md §18): the empirical traffic
+        # matrix that optimize_placement re-places against
+        fb = engine.fabric_backend
+        self.profile = (
+            TrafficProfile.empty(engine.n_clusters, engine.fabric_model.n_tiles)
+            if fb is not None and fb.per_link_stats else None
+        )
+
+    def fingerprint(self) -> str:
+        """Identity of this pool's serving geometry: the resident model
+        (a registry of one, named ``"default"``) × delivery mode × pool size
+        (× the autotuned dispatch decision), hashed as ``repro``'s pool
+        does."""
+        eng = self.engine
+        mode = "ring" if eng.fabric_ring else "fabric" if eng.fabric_backend is not None else "queued"
+        h = hashlib.sha256()
+        h.update(_registry_fingerprint({"default": self.cc.tables}).encode())
+        h.update(f"|{mode}|P{self.cfg.pool_size}".encode())
+        if eng.autotune_decision is not None:
+            h.update(f"|{eng.autotune_decision.token()}".encode())
+        return h.hexdigest()
 
     # -- lifecycle ---------------------------------------------------------
     @property
@@ -301,15 +349,26 @@ class AerSessionPool:
         return np.stack(acts)
 
     def finish_step(self, out) -> np.ndarray:
-        """Bring a launched step's spikes, drop counts and (fabric mode) link
-        drop counts to the host in one wait on the device, and apply them
-        per session."""
+        """Bring a launched step's spikes, drop counts, (fabric mode) link
+        drop counts and (with a profile) its traffic sums to the host in one
+        wait on the device, and apply them per session and to the profile."""
         spikes_t, stats = out
         link_t = stats.link_dropped
         if link_t is not None and link_t.ndim > spikes_t.ndim - 1:
             link_t = link_t.sum(-1)  # per_link_stats: [P, T*T] -> per session
         to_copy = (spikes_t, stats.dropped) + (() if link_t is None else (link_t,))
-        spikes, dropped, *link = _to_host(*to_copy)
+        if self.profile is not None:
+            # summed over every slot on the device, empty ones included
+            nc, nt = self.profile.n_clusters, self.profile.n_tiles
+            to_copy += (stats.delivered.reshape(-1, nc * nc).sum(0),
+                        stats.link_dropped.reshape(-1, nt * nt).sum(0))
+        spikes, dropped, *rest = _to_host(*to_copy)
+        link = rest[:1] if link_t is not None else []
+        if self.profile is not None:
+            pair, link_pair = rest[-2:]
+            self.profile.observe(
+                DeliveryStats(dropped=dropped, link_dropped=link_pair, delivered=pair)
+            )
         self.last_stats = stats
         self.n_steps += 1
         o0, o1 = self.cc.out

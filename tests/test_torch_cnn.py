@@ -100,19 +100,36 @@ def test_compile_errors_match_for_tag_and_cam_overflow():
 
 
 def test_later_slices_raise_not_implemented():
+    """What waits for the faults port (``repair_placement``) raises,
+    naming it; the compile refusals stay repro's."""
+    from repro.core import compiler as jcomp
+    from repro_torch.core import compiler as tcomp
+    from repro_torch.core.routing import Fabric
+
     spec = ttags.NetworkSpec(n_neurons=8, cluster_size=4, k_tags=8)
     spec.connect(0, 5)
-    with pytest.raises(NotImplementedError, match="compiler v2"):
-        ttags.compile_network(spec, allocator="reuse")
+    with pytest.raises(NotImplementedError, match="Faults and recovery"):
+        tcomp.repair_placement(ttags.compile_network(spec), Fabric(), faults=None)
+    assert hasattr(jcomp, "repair_placement")
     # a placement is compiled now; without a fabric it is refused, as in repro
     with pytest.raises(ValueError, match="requires a fabric"):
         ttags.compile_network(spec, tile_of_cluster=[0, 1])
     with pytest.raises(ValueError, match="unknown allocator"):
         ttags.compile_network(spec, allocator="nope")
-    with pytest.raises(NotImplementedError, match="compiler v2"):
-        tcnn.compile_poker_cnn(with_report=True)
-    with pytest.raises(NotImplementedError, match="compiler v2"):
-        tcnn.compile_poker_cnn(allocator="reuse")
+
+
+def test_reuse_allocator_and_table_v_report_match_repro():
+    """Compiler v2's reuse allocator and the Table-V report equal repro's."""
+    spec = ttags.NetworkSpec(n_neurons=8, cluster_size=4, k_tags=8)
+    spec.connect(0, 5)
+    jspec = jtags.NetworkSpec(n_neurons=8, cluster_size=4, k_tags=8)
+    jspec.connect(0, 5)
+    _assert_tables_equal(jtags.compile_network(jspec, allocator="reuse"),
+                         ttags.compile_network(spec, allocator="reuse"))
+    t = tcnn.compile_poker_cnn(allocator="reuse", with_report=True)
+    j = jcnn.compile_poker_cnn(allocator="reuse", with_report=True)
+    _assert_tables_equal(j.tables, t.tables)
+    assert t.report.summary() == j.report.summary()
 
 
 @pytest.fixture(scope="module")

@@ -24,9 +24,10 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.cnn import compile_poker_cnn
+from repro_torch.core.compiler import optimize_placement
 from repro_torch.core.dispatch import FabricBackend
 from repro_torch.core.routing import ChipConstants, Fabric
-from repro_torch.core.two_stage import compact_events
+from repro_torch.core.two_stage import compact_events, two_stage_deliver
 from repro_torch.data.pipeline import DvsStreamConfig, DvsStreamSource
 from repro_torch.kernels.cam_match import ops as cam_ops
 from repro_torch.kernels.fabric_deliver import ops as fabric_ops
@@ -448,6 +449,98 @@ def test_cuda_fabric_pool_kernel_and_plain_legs_agree(cuda):
             ]
         assert summaries[True] == summaries[False]
         assert (sum(r[-1] for r in summaries[True]) > 0) == (cap is not None)
+
+
+
+def test_cuda_two_stage_deliver_without_external_activity(cuda):
+    """The cuda backend on the dense stage-1 scatter alone (a strided view
+    of the activity slabs, no external activity added to it) launches
+    cam_match and equals the reference backend; so does fused."""
+    cc = compile_poker_cnn()
+    t = cc.tables
+    tabs = [torch.as_tensor(getattr(t, f), device=cuda)
+            for f in ("src_tag", "src_dest", "cam_tag", "cam_syn")]
+    rng = np.random.default_rng(4)
+    spikes = torch.as_tensor((rng.random((3, t.n_neurons)) < 0.2).astype(np.float32), device=cuda)
+    want = two_stage_deliver(spikes, *tabs, t.cluster_size, t.k_tags, backend="reference")
+    for backend, wrapper in (("cuda", cam_ops.cam_match), ("fused", fused_ops.fused_deliver)):
+        before = wrapper.launches
+        got = two_stage_deliver(spikes, *tabs, t.cluster_size, t.k_tags, backend=backend)
+        assert wrapper.launches == before + 1
+        assert torch.equal(got, want), backend
+
+
+def test_cuda_pool_profile_equals_the_cpu_pool(cuda):
+    """A profiled fabric pool (per_link_stats, link capacity 2, the stale
+    corners-first placement) on the card: its traffic profile, summed over
+    the slots on the device, equals the same pool's on the CPU, and a
+    placement optimized on it is the CPU's."""
+    cc = compile_poker_cnn()
+    stale = np.array([0, 8, 2, 6, 4, 5], np.int32)
+    tables = dataclasses.replace(cc.tables, tile_of_cluster=stale)
+    profiles = {}
+    for dev in (cuda, torch.device("cpu")):
+        engine = build_poker_engine(tables, "fabric", device=dev,
+                                    fabric_options={"link_capacity": 2, "per_link_stats": True})
+        pool = AerSessionPool(dataclasses.replace(cc, tables=tables), engine,
+                              AerServeConfig(pool_size=4, max_steps=10**6))
+        for i in range(3):  # one slot stays empty
+            pool.admit(DvsSession(i, DvsStreamSource(DvsStreamConfig(symbol=i, seed=23),
+                                                     session_id=i), label=i))
+        for _ in range(6):
+            pool.step()
+        profiles[dev.type] = pool.profile
+    got, want = profiles["cuda"], profiles["cpu"]
+    for name in ("pair_delivered", "link_dropped", "last"):
+        assert getattr(got, name).tobytes() == getattr(want, name).tobytes(), name
+    assert (got.dropped, got.steps) == (want.dropped, want.steps)
+    assert got.total_link_dropped > 0
+    placements = [optimize_placement(p.matrix(), Fabric(), init=stale, seed=0)[0]
+                  for p in (got, want)]
+    assert placements[0].tobytes() == placements[1].tobytes()
+
+
+def test_cuda_autotuner_times_on_the_card(cuda):
+    """backend="auto" on the card: every candidate timed (the lossless
+    queue's queued figure is dense's), the engine built on the winner's
+    kernel backend, and the pool launching the winner's kernel once per
+    step: cam_match for dense, fused_deliver for fused."""
+    cc = compile_poker_cnn()
+    engine = build_poker_engine(cc.tables, "auto", device=cuda,
+                                autotune={"activity": 0.1, "batch": 8, "iters": 2})
+    d = engine.autotune_decision
+    m = dict(d.measurements)
+    assert set(m) == {"dense", "queued", "fused"} and all(us > 0 for us in m.values())
+    assert m["queued"] == m["dense"] and d.winner in ("dense", "fused")
+    assert d.backend == engine.backend.name == {"dense": "cuda", "fused": "fused"}[d.winner]
+    pool = AerSessionPool(cc, engine, AerServeConfig(pool_size=4, max_steps=25))
+    sessions = [DvsSession(i, DvsStreamSource(DvsStreamConfig(symbol=i % 4, seed=9),
+                                              session_id=i), label=i % 4) for i in range(6)]
+    before = {op: op.launches for op in (fused_ops.fused_deliver, cam_ops.cam_match)}
+    results = pool.serve(sessions)
+    kernel = fused_ops.fused_deliver if d.winner == "fused" else cam_ops.cam_match
+    for op, n in before.items():
+        assert op.launches - n == (pool.n_steps if op is kernel else 0)
+    assert len(results) == 6 and d.token() in ("autotune:fused:act0.1:B8",
+                                               "autotune:dense:act0.1:B8")
+
+
+def test_cuda_injected_dense_decision_serves_through_cam_match(cuda):
+    """A decision tuned on the CPU (dense, plain stage 2 there) builds a
+    card engine on the cam_match kernel."""
+    from repro_torch.core.dispatch import autotune_backend
+
+    t = compile_poker_cnn().tables
+    d = autotune_backend(t.src_tag, t.src_dest, t.cam_tag, t.cam_syn, t.cluster_size,
+                         t.k_tags, measure={"dense": 1.0, "queued": 2.0, "fused": 3.0},
+                         device="cpu")
+    assert d.backend == "reference"
+    engine = build_poker_engine(t, "auto", device=cuda, autotune={"decision": d})
+    assert engine.backend.name == "cuda" and engine._autotune_dense
+    carry = engine.init_state(batch=2)
+    before = cam_ops.cam_match.launches
+    engine.step(carry, torch.zeros((2, t.n_clusters, t.k_tags), device=cuda))
+    assert cam_ops.cam_match.launches == before + 1
 
 
 # ---------------------------------------------------------------------------
