@@ -56,6 +56,21 @@ Phases, each of which fails the run on any error:
      twice to the same decision: every candidate's microseconds, 64
      sessions equal to the fixed legs', launching the winner's kernel,
      cam_match or fused_deliver, once per step);
+  3c. faults and recovery, on the serving phase's readout and sessions,
+     each part with the launch counts set to 0 just before it and read just
+     after, every count against the JAX package's CPU counts pinned at the
+     top of the phase (tests/faults_phase_reference.py): ``fabric_deliver``
+     on the healthy and the 25%-dead-link entry tables against its plain
+     version (severed entries carry weight 0) with its device time on each;
+     the placement repaired around the dead links, and the pool served
+     healthy, over the dead links and on the repaired placement, kernel
+     and plain legs equal; ring against roll under a dead link, a lossy
+     mesh and a stuck cluster; the watchdog's mid-flight migration onto the
+     repaired engine (extract and splice timed); a checkpoint at step 5
+     under build/chip_smoke/ckpt/, the pool and engine dropped, rebuilt,
+     restored and resumed on fused and on the fabric, bit-exact against
+     the uninterrupted run (save and restore timed); 64 CAM and 64 SRAM bit
+     flips served on cuda and fused, equal to the reference leg;
   4. LM serving: rwkv6-3b at full width and depth (32 layers, bfloat16
      weights initialised on the card from seed 7) serves 8 prompts of 512
      tokens with 32 new greedy tokens through ``Engine.generate``, which must
@@ -73,7 +88,8 @@ Phases, each of which fails the run on any error:
      its registers, spills, shared bytes and blocks per SM are logged.
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` from the serving
-and LM paths, ``launches_compiler_phase`` from phase 3b), then as the last line
+and LM paths, ``launches_compiler_phase`` from phase 3b,
+``launches_faults_phase`` from phase 3c), then as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (the plain stage 2
 contracts a one-hot with a float32 matmul). Run from the repository root:
 
@@ -100,6 +116,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.cnn import compile_poker_cnn  # noqa: E402
 from repro_torch.core.compiler import (  # noqa: E402
@@ -107,6 +124,7 @@ from repro_torch.core.compiler import (  # noqa: E402
     Geometry,
     compile_network_v2,
     optimize_placement,
+    repair_placement,
     retarget,
 )
 from repro_torch.core.dispatch import FabricBackend  # noqa: E402
@@ -115,6 +133,7 @@ from repro_torch.core.event_engine import (  # noqa: E402
     dense_reference_step,
     dense_weights_from_tables,
 )
+from repro_torch.core.faults import FaultSpec, apply_table_faults, fault_blast_radius  # noqa: E402
 from repro_torch.core.neuron import neuron_step  # noqa: E402
 from repro_torch.core.routing import ChipConstants, Fabric  # noqa: E402
 from repro_torch.core.tags import NetworkSpec, compile_network  # noqa: E402
@@ -140,6 +159,12 @@ from repro_torch.serve.aer import (  # noqa: E402
     tune_poker_readout,
 )
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
+from repro_torch.serve.health import (  # noqa: E402
+    Watchdog,
+    WatchdogConfig,
+    migrate_pool,
+    serve_resilient,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -928,7 +953,7 @@ def phase_serving(dev: torch.device) -> dict[str, int]:
         json.dumps({"serving": summary, "profile": prof}, indent=1)
     )
     v1 = {"cc": cc, "fc_select": fc_select, "suits": suits,
-          "results": {k: runs[k]["results"] for k in ("fused", "cuda")}}
+          "results": {k: runs[k]["results"] for k in ("fused", "cuda", "fabric")}}
     return launches, v1
 
 
@@ -1326,6 +1351,352 @@ def phase_compiler(dev, v1) -> dict[str, int]:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: faults and recovery
+# ---------------------------------------------------------------------------
+# What the JAX package gives for this phase's workloads on the CPU (printed
+# by tests/faults_phase_reference.py; the port must reproduce them on the
+# card), on the serving phase's Hebbian readout, suits and sessions (32
+# slots, 64 sessions of seed 7, 16 events per step, the default 3x3 fabric):
+# the repair of the placement around tests/test_faults.py's 25% dead links,
+# and the pool served healthy, over the dead links and on the repaired
+# placement; one fault of each class, a full pool of the first 32 sessions
+# stepped 20 times; the watchdog's mid-flight migration; 64 + 64 bit flips.
+DEAD25 = ((0, 1), (1, 0), (0, 3), (3, 0), (1, 2), (2, 1))
+FAULT_CLASSES = {
+    "dead_link": {"dead_links": ((0, 1),)},
+    "lossy": {"link_drop_rate": 0.05, "seed": 3},
+    "stuck_cluster": {"stuck_clusters": (0,)},
+}
+CLASS_STEPS = 20
+MEMORY_FAULTS = {"cam_bit_flips": 64, "sram_bit_flips": 64, "seed": 11}
+REPAIRED_PLACEMENT = [5, 7, 8, 5, 7, 3]
+STATE_COUNTS = {  # accuracy, link drops, engine steps
+    "healthy": (1.0, 0, 43),
+    "dead25": (0.21875, 40126, 120),
+    "repaired": (1.0, 0, 45),
+}
+CLASS_COUNTS = {  # link drops, delivered events, spikes
+    "dead_link": (5599, 0, 5954),
+    "lossy": (262, 6052, 7220),
+    "stuck_cluster": (900, 5382, 6712),
+}
+MIGRATION = {"results": 64, "accuracy": 1.0, "link_dropped": 42,
+             "events": ["pool-degraded"], "degraded_step": 4}
+BLAST_RADIUS = {"connections_before": 24576, "connections_lost": 1075,
+                "connections_gained": 1453, "connections_kept": 23501}
+MEMORY_COUNTS = {"accuracy": 0.984375, "latency_steps": 1183, "engine_steps": 41}
+KILL_AT = 5
+FAULTS_PATH_KERNELS = ("cam_match", "fused_deliver", "fabric_deliver")
+
+
+def _with_placement(cc, placement):
+    return dataclasses.replace(cc, tables=dataclasses.replace(cc.tables,
+                                                              tile_of_cluster=placement))
+
+
+def _faulted_engine(tables, dev, faults, kernel=True, ring=True):
+    return build_poker_engine(tables, backend="fabric", device=dev, faults=faults,
+                              fabric_options={"kernel": kernel, "ring": ring})
+
+
+def check_repair_states(dev, v1, launched) -> dict:
+    """Healthy -> 25% dead links -> repaired: the placement, and per state
+    a pool on the ring path with ``fabric_deliver`` (kernel leg) and with
+    ``kernel=False``: equal session for session, and the JAX package's
+    accuracy, link drops and engine steps."""
+    cc, suits = v1["cc"], v1["suits"]
+    fs = FaultSpec(dead_links=DEAD25)
+    placement, report = repair_placement(cc.tables, Fabric(), fs, seed=0)
+    if placement.tolist() != REPAIRED_PLACEMENT or not report["feasible"]:
+        raise AssertionError(f"repair_placement gave {placement.tolist()} "
+                             f"(feasible {report['feasible']}), expected {REPAIRED_PLACEMENT}")
+    states = {"healthy": (cc, None), "dead25": (cc, fs),
+              "repaired": (_with_placement(cc, placement), fs)}
+    out = {"placement": placement.tolist(), "feasible": report["feasible"],
+           "moved_clusters": report["moved_clusters"]}
+    for name, (cc_s, faults) in states.items():
+        legs = {}
+        for kernel in (True, False):
+            eng = _faulted_engine(cc_s.tables, dev, faults, kernel)
+            legs[kernel] = _serve_leg(cc_s, dev, "fabric", None, suits,
+                                      "fabric_deliver" if kernel else None, engine=eng)
+        launched.update(legs[True]["launches"])
+        if legs[True]["results"] != legs[False]["results"]:
+            raise AssertionError(f"{name}: fabric kernel and plain legs differ")
+        r = legs[True]
+        got = (r["accuracy"], r["link_dropped"], r["engine_steps"])
+        if got != STATE_COUNTS[name]:
+            raise AssertionError(f"{name}: accuracy, link drops, steps {got}, the JAX "
+                                 f"package's {STATE_COUNTS[name]}")
+        d1 = eng.fabric_model.max_delay + 1
+        out[name] = {"ring_slots": d1, "wall_ms_per_step": r["wall_s"] * 1e3 / r["engine_steps"],
+                     **{k: r[k] for k in ("accuracy", "link_dropped", "engine_steps",
+                                          "latency_p50_steps", "sessions_per_s", "launches")}}
+        log(f"faults[{name}]: accuracy {r['accuracy']}, {r['link_dropped']} link drops, "
+            f"{r['engine_steps']} steps ({out[name]['wall_ms_per_step']:.3f} ms/step wall), "
+            f"ring of {d1} slots; kernel and plain legs equal, the JAX package's counts")
+    log(f"faults: repair_placement around 25% dead links -> {placement.tolist()} "
+        f"(moved clusters {report['moved_clusters']}), feasible")
+    return out
+
+
+def _class_counts(cc, suits, eng) -> tuple[int, int, int]:
+    pool = AerSessionPool(cc, eng, AerServeConfig(pool_size=POOL))
+    for s in _sessions(suits)[:POOL]:
+        pool.admit(s)
+    link_dropped = delivered = spikes = 0
+    for _ in range(CLASS_STEPS):
+        out = pool.step()
+        st = pool.last_stats
+        link_dropped += int(st.link_dropped.sum())
+        delivered += int(st.delivered.sum())
+        spikes += int(out.sum())
+    return link_dropped, delivered, spikes
+
+
+def check_fault_classes(dev, v1, launched) -> dict:
+    """Ring against roll under a dead link, a lossy mesh and a stuck cluster
+    on the Table-V fabric at the pool's batch: equal link drops, delivered
+    events and spikes, the JAX package's, with ``fabric_deliver`` launched
+    once per ring step."""
+    cc, suits = v1["cc"], v1["suits"]
+    out = {}
+    for name, kw in FAULT_CLASSES.items():
+        fs = FaultSpec(**kw)
+        got = {}
+        for ring in (True, False):
+            eng = _faulted_engine(cc.tables, dev, fs, ring=ring)
+            got[ring], counts = _counted(lambda: _class_counts(cc, suits, eng))
+            _expect_launches(counts, {"fabric_deliver": CLASS_STEPS if ring else 0},
+                             f"fault class {name}, ring={ring}")
+            launched.update(counts)
+        if not got[True] == got[False] == CLASS_COUNTS[name]:
+            raise AssertionError(f"{name}: ring {got[True]}, roll {got[False]}, the JAX "
+                                 f"package's {CLASS_COUNTS[name]}")
+        out[name] = dict(zip(("link_dropped", "delivered", "spikes"), got[True]))
+        log(f"faults[{name}]: ring and roll equal over {CLASS_STEPS} steps of {POOL} slots: "
+            f"{got[True][0]} link drops, {got[True][1]} delivered, {got[True][2]} spikes")
+    return out
+
+
+def check_migration(dev, v1, launched) -> dict:
+    """The watchdog on the 25%-dead-link pool: one ``pool-degraded``, the
+    repair, and the 32 live sessions moved mid-flight (extract, splice)
+    onto the repaired engine; all 64 results, the JAX package's accuracy."""
+    cc, suits = v1["cc"], v1["suits"]
+    fs = FaultSpec(dead_links=DEAD25)
+    pool = AerSessionPool(cc, _faulted_engine(cc.tables, dev, fs), AerServeConfig(pool_size=POOL))
+    timing, pools = {}, []
+
+    def on_degraded(old, ev):
+        placement, _ = repair_placement(cc.tables, Fabric(), fs, seed=0)
+        eng_r = _faulted_engine(_with_placement(cc, placement).tables, dev, fs)
+        occ = old.occupied
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sc = old.engine.extract_slots(old.carry, occ)
+        t1 = time.perf_counter()
+        eng_r.splice_slots(eng_r.init_state(batch=POOL), occ, sc)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        new = migrate_pool(old, eng_r)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        timing.update(extract_ms=(t1 - t0) * 1e3, splice_ms=(t2 - t1) * 1e3,
+                      migrate_pool_ms=(t3 - t2) * 1e3, sessions_moved=len(occ),
+                      at_step=old.n_steps, drop_rate=ev.value)
+        pools.append(new)
+        return new
+
+    wd = Watchdog(WatchdogConfig(window=4, link_drop_threshold=0.2, silence_steps=30))
+    (results, events), counts = _counted(lambda: serve_resilient(
+        pool, _sessions(suits), watchdog=wd, on_degraded=on_degraded))
+    if len(pools) != 1:
+        raise AssertionError(f"migration: {len(pools)} migrations, expected 1")
+    steps = pools[0].n_steps
+    _expect_launches(counts, {"fabric_deliver": steps}, "migration")
+    launched.update(counts)
+    degraded = [e for e in events if e.kind == "pool-degraded"]
+    got = {"results": len(results), "accuracy": float(np.mean([r.correct for r in results])),
+           "link_dropped": int(sum(r.link_dropped for r in results)),
+           "events": [e.kind for e in events], "degraded_step": degraded[0].step}
+    if got != MIGRATION:
+        raise AssertionError(f"migration: {got}, the JAX package's {MIGRATION}")
+    log(f"faults[migration]: pool-degraded at step {timing['at_step']} (drop rate "
+        f"{timing['drop_rate']:.3f}), {timing['sessions_moved']} sessions moved: extract "
+        f"{timing['extract_ms']:.3f} ms, splice {timing['splice_ms']:.3f} ms, migrate_pool "
+        f"{timing['migrate_pool_ms']:.3f} ms; {len(results)} results, accuracy "
+        f"{got['accuracy']}, {steps} steps, fabric_deliver launched {counts['fabric_deliver']}")
+    return {**got, **timing, "engine_steps": steps, "launches": counts}
+
+
+def _serve_killed(cc, make_engine, suits, ckpt_dir: Path) -> tuple[list, dict]:
+    """Serve the 64 sessions; at engine step ``KILL_AT`` checkpoint, drop
+    the pool and its engine, rebuild both and restore, then serve on."""
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ck = Checkpointer(str(ckpt_dir))
+    cfg = AerServeConfig(pool_size=POOL)
+    pool = AerSessionPool(cc, make_engine(), cfg)
+    pending = collections.deque(_sessions(suits))
+    results, timing = [], {}
+    while pending or pool.occupied:
+        while pending and pool.free_slots:
+            pool.admit(pending.popleft())
+        pool.step()
+        if pool.n_steps == KILL_AT and not timing:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pool.checkpoint(ck, blocking=True)
+            t1 = time.perf_counter()
+            del pool
+            engine = make_engine()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            pool = AerSessionPool.restore(cc, engine, cfg, ck)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            timing = {"save_ms": (t1 - t0) * 1e3, "restore_ms": (t3 - t2) * 1e3,
+                      "checkpoint_bytes": sum(p.stat().st_size
+                                              for p in (ckpt_dir / f"step_{KILL_AT}").iterdir())}
+            if pool.n_steps != KILL_AT or len(pool.occupied) != POOL:
+                raise AssertionError("restored pool lost its step count or sessions")
+        finished = pool.finished_slots()
+        if finished:
+            results.extend(pool.evict_many(finished))
+    timing["engine_steps"] = pool.n_steps
+    return results, timing
+
+
+def check_kill_restore(dev, v1, launched) -> dict:
+    """Checkpoint at step 5, kill, rebuild, restore and resume, on ``fused``
+    and on ``fabric``: every session equals the serving phase's
+    uninterrupted run (prediction, decided, decision step, counts, drops)."""
+    cc, suits = v1["cc"], v1["suits"]
+    out = {}
+    for label, kernel in (("fused", "fused_deliver"), ("fabric", "fabric_deliver")):
+        def make_engine(label=label):
+            return build_poker_engine(cc.tables, backend=label, device=dev)
+        (results, timing), counts = _counted(
+            lambda: _serve_killed(cc, make_engine, suits, OUT_DIR / "ckpt" / label))
+        _expect_launches(counts, {kernel: timing["engine_steps"]}, f"kill-restore {label}")
+        launched.update(counts)
+        got = [(r.session_id, r.prediction, r.decided, r.latency_steps, r.counts.tolist(),
+                r.dropped, r.link_dropped, r.error)
+               for r in sorted(results, key=lambda r: r.session_id)]
+        if got != v1["results"][label]:
+            raise AssertionError(f"kill-restore on {label}: sessions differ from the "
+                                 "uninterrupted run")
+        out[label] = {**timing, "launches": counts}
+        log(f"faults[kill-restore {label}]: checkpoint at step {KILL_AT} "
+            f"({timing['checkpoint_bytes']} bytes) in {timing['save_ms']:.3f} ms, restore "
+            f"{timing['restore_ms']:.3f} ms; {len(got)} sessions equal the uninterrupted run, "
+            f"{kernel} launched {counts[kernel]} times in {timing['engine_steps']} steps")
+    return out
+
+
+def check_memory_faults(dev, v1, launched) -> dict:
+    """64 CAM and 64 SRAM bit flips on the Table-V tables: the JAX
+    package's blast radius; the corrupted tables serve the 64 sessions on
+    ``cuda`` and ``fused`` equal to the ``reference`` leg session for
+    session, with the JAX package's accuracy and decision steps."""
+    cc, suits = v1["cc"], v1["suits"]
+    corrupted, flips = apply_table_faults(cc.tables, FaultSpec(**MEMORY_FAULTS))
+    radius = fault_blast_radius(cc.tables, corrupted)
+    if {k: radius[k] for k in BLAST_RADIUS} != BLAST_RADIUS or len(flips) != 128:
+        raise AssertionError(f"blast radius {radius}, the JAX package's {BLAST_RADIUS}")
+    cc_c = dataclasses.replace(cc, tables=corrupted)
+    legs = {label: _serve_leg(cc_c, dev, label, None, suits, kernel)
+            for label, kernel in (("reference", None), ("cuda", "cam_match"),
+                                  ("fused", "fused_deliver"))}
+    for label in ("cuda", "fused"):
+        launched.update(legs[label]["launches"])
+        if legs[label]["results"] != legs["reference"]["results"]:
+            raise AssertionError(f"corrupted tables: {label} differs from the reference leg")
+    r = legs["reference"]
+    got = {"accuracy": r["accuracy"], "engine_steps": r["engine_steps"],
+           "latency_steps": int(sum(x[3] for x in r["results"]))}
+    if got != MEMORY_COUNTS:
+        raise AssertionError(f"corrupted tables: {got}, the JAX package's {MEMORY_COUNTS}")
+    log(f"faults[memory]: {len(flips)} bit flips, blast fraction {radius['blast_fraction']:.4f} "
+        f"({radius['connections_lost']} lost, {radius['connections_gained']} gained); "
+        f"cuda and fused equal the reference leg, accuracy {r['accuracy']}")
+    return {"blast_radius": radius, **got,
+            "launches": {k: legs[k]["launches"] for k in ("cuda", "fused")}}
+
+
+def check_faulted_kernel(dev, v1) -> dict:
+    """``fabric_deliver`` on the healthy and the 25%-dead-link entry tables
+    (default placement) at B = 32, 10% of the neurons spiking: severed
+    entries reach the kernel as weight 0, the kernel leg equals the plain
+    leg bit for bit, and the kernel's device time on each table."""
+    cc = v1["cc"]
+    t = cc.tables
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    spikes = (torch.rand((POOL, t.n_neurons), generator=gen, device=dev) < 0.1).float()
+    ext = torch.randint(0, 3, (POOL, t.n_clusters, t.k_tags), generator=gen,
+                        device=dev).float() * 8.0
+    cam_tag = torch.as_tensor(t.cam_tag, device=dev)
+    cam_syn = torch.as_tensor(t.cam_syn, device=dev)
+    out = {}
+    for name, faults in (("healthy", None), ("dead25", FaultSpec(dead_links=DEAD25))):
+        be = FabricBackend(faults=faults)
+        model = be.model_for(t.n_clusters)
+        entries = be.build_entries(t.src_tag, t.src_dest, t.cluster_size, t.k_tags, device=dev)
+        ring = torch.randint(0, 3, (POOL, model.max_delay + 1, t.n_clusters, t.k_tags),
+                             generator=gen, device=dev).float()
+        cursor = torch.ones((), dtype=torch.int32, device=dev)
+
+        def step(kernel, entries=entries, model=model, ring=ring, cursor=cursor):
+            return fabric_ops.fabric_deliver_ring(
+                spikes, entries, cam_tag, cam_syn, t.cluster_size, t.k_tags, ring, cursor,
+                max_delay=model.max_delay, link_capacity=model.link_capacity,
+                external_activity=ext, kernel=kernel)
+
+        got, want = step(True), step(False)
+        for a, b in zip(got[:2], want[:2]):
+            if not torch.equal(a, b):
+                raise AssertionError(f"fabric_deliver on the {name} table: kernel and plain "
+                                     "legs differ")
+        if not all(torch.equal(getattr(got[3], f), getattr(want[3], f))
+                   for f in ("link_dropped", "delivered")):
+            raise AssertionError(f"fabric_deliver on the {name} table: stats differ")
+        severed = int((~entries.alive).sum())
+        if (severed == 0) != (faults is None):
+            raise AssertionError(f"{name}: {severed} severed entries")
+        out[name] = {"entries": int(entries.alive.numel()), "severed_entries": severed,
+                     "link_dropped": int(got[3].link_dropped.sum()),
+                     "device_ms": device_ms(lambda: step(True), "fabric_deliver_kernel"),
+                     "step_ms": time_ms(lambda: step(True))}
+    log(f"faults[kernel]: fabric_deliver equals its plain leg on the healthy and the dead-link "
+        f"tables ({out['dead25']['severed_entries']} of {out['dead25']['entries']} entries "
+        f"severed, weight 0); device {out['healthy']['device_ms']} ms healthy, "
+        f"{out['dead25']['device_ms']} ms faulted; ring step {out['healthy']['step_ms']:.4f} / "
+        f"{out['dead25']['step_ms']:.4f} ms per call")
+    return out
+
+
+def phase_faults(dev, v1) -> dict[str, int]:
+    """Faults and recovery: each part sets the launch counts to 0 just
+    before it and reads them just after; their sum must launch every kernel
+    of the path."""
+    launched: collections.Counter = collections.Counter()
+    out = {"kernel": check_faulted_kernel(dev, v1),
+           "repair": check_repair_states(dev, v1, launched),
+           "classes": check_fault_classes(dev, v1, launched),
+           "migration": check_migration(dev, v1, launched),
+           "kill_restore": check_kill_restore(dev, v1, launched),
+           "memory": check_memory_faults(dev, v1, launched)}
+    missing = [name for name in FAULTS_PATH_KERNELS if launched[name] == 0]
+    if missing:
+        raise AssertionError(f"faults phase: {missing} never launched")
+    out["launches"] = dict(launched)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "chip_smoke_faults.json").write_text(json.dumps(out, indent=1, default=str))
+    log(f"faults phase: launches {dict(launched)}")
+    return dict(launched)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: LM serving (rwkv6-3b)
 # ---------------------------------------------------------------------------
 STREAM_TOL = 2.0**-5  # bfloat16 residual stream: 4 ulps at its largest element
@@ -1575,6 +1946,7 @@ def main() -> None:
     kernels = phase_kernels(dev)
     launches, v1 = phase_serving(dev)
     compiler_launches = phase_compiler(dev, v1)
+    faults_launches = phase_faults(dev, v1)
     launches.update(phase_lm(dev))
     if set(launches) != set(kernels):
         raise AssertionError(f"serving legs launched {sorted(launches)}, kernels {sorted(kernels)}")
@@ -1583,6 +1955,7 @@ def main() -> None:
             raise AssertionError(f"{name} was not launched on the serving path")
         kernels[name]["launches"] = n
         kernels[name]["launches_compiler_phase"] = compiler_launches.get(name, 0)
+        kernels[name]["launches_faults_phase"] = faults_launches.get(name, 0)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = [{**{k: v[k] for k in keys}, "kernel_ms": v["ms"],

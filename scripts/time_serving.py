@@ -8,7 +8,9 @@ session that never decides (so the load stays constant), served on the
 profile). Per leg: 5 warm-up steps, then ``--rounds`` rounds of ``--steps``
 steps, each step split into building the inputs, launching the engine step
 (host time of the call), waiting for the device, and the readout; the
-median over rounds of each part's mean ms per step. ``--src`` names the
+median over rounds of each part's mean ms per step; then ``--steps`` steps
+under torch.profiler for the device-busy ms and device operations per
+step (every device kernel's time, summed). ``--src`` names the
 ``src`` directory whose ``repro_torch`` is timed (default: this
 checkout's), so that two checkouts can be timed in turns on one card
 (A, B, B, A). ``--autotune N`` also builds ``backend="auto"`` engines N
@@ -46,6 +48,7 @@ def main() -> None:
     args = parser.parse_args()
     sys.path.insert(0, str(args.src.resolve()))
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.cnn import compile_poker_cnn
     from repro_torch.data.pipeline import DvsStreamConfig, DvsStreamSource
@@ -89,6 +92,14 @@ def main() -> None:
                     parts[key] += dt * 1e3 / args.steps
             rounds.append(parts)
         legs[label] = {key: statistics.median(r[key] for r in rounds) for key in rounds[0]}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.steps):
+                pool.step()
+            torch.cuda.synchronize()
+        device = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        legs[label]["device_busy_ms"] = sum(device) / 1e3 / args.steps
+        legs[label]["device_ops"] = len(device) / args.steps
         legs[label]["profile"] = getattr(pool, "profile", None) is not None
     decisions = []
     for _ in range(args.autotune):

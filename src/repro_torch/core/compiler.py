@@ -4,8 +4,7 @@ Counterpart of ``repro.core.compiler``, host-side numpy, byte-equal to the
 reference for the same inputs: tag numbers, placements (the annealer draws
 from ``np.random.default_rng(seed)`` in the reference's order and adds its
 float64 deltas in the reference's order), reports, artifact files and
-fingerprints. ``repair_placement`` needs fault injection and raises
-``NotImplementedError`` until the faults slice of the port.
+fingerprints, and ``repair_placement``'s degraded-mode placements.
 
 The paper's Appendix A argues two optimizations make two-stage tag routing
 deployable: *tag re-assignment* (reusing the per-cluster tag space so K stays
@@ -553,13 +552,91 @@ def repair_placement(
     seed: int = 0,
     anneal_steps: int | None = None,
 ) -> tuple[np.ndarray, dict]:
-    """Degraded-mode placement repair around a ``FaultSpec`` (the
-    reference's ``repro.core.compiler.repair_placement``): not ported yet."""
-    raise NotImplementedError(
-        "repair_placement needs fault injection (FaultSpec, tile fault "
-        "matrices), which comes with the faults slice of the port (ROADMAP "
-        "queue 1, 'Faults and recovery')"
+    """Degraded-mode placement repair around a :class:`~repro_torch.core.faults.FaultSpec`.
+
+    Re-runs :func:`optimize_placement` with the fault-severed fabric masked
+    out: dead tiles are excluded from the search, and tile pairs whose XY
+    route crosses a dead link (either direction — the annealer's objective
+    must be symmetric, so a pair is penalized if *either* direction is
+    severed) cost a prohibitive penalty instead of their hop count; lossy
+    links add a proportional bias so traffic prefers clean routes. The
+    compiled placement (``tables.tile_of_cluster``) seeds the search, with
+    clusters on dead tiles first relocated to the nearest live tile with
+    spare capacity — surviving sessions can then migrate with
+    ``EventEngine.splice_slots`` instead of restarting.
+
+    Returns ``(placement, report)``. ``report["feasible"]`` is ``True`` iff
+    no traffic remains on a *directionally* unreachable tile pair under the
+    final placement (the symmetric penalty is conservative; feasibility is
+    checked against the true directed reachability);
+    ``report["unreachable_traffic"]`` / ``report["unreachable_pairs"]``
+    quantify what is still stranded, ``report["moved_clusters"]`` lists the
+    clusters whose tile changed, and the :func:`optimize_placement` cost
+    figures ride along (computed against the penalty matrix) next to
+    ``mean_hops_final_true`` (the real XY hop count of the result).
+    """
+    from repro_torch.core.faults import tile_fault_matrices
+
+    if not isinstance(tables, RoutingTables) and hasattr(tables, "tables"):
+        tables = tables.tables
+    faults.validate(fabric)
+    nc = tables.n_clusters
+    alive, rate = tile_fault_matrices(fabric, faults)
+    tile_ok = np.ones(fabric.n_tiles, dtype=bool)
+    tile_ok[list(faults.dead_tiles)] = False
+    h = tile_hop_matrix(fabric).astype(np.float64)
+    penalty = (float(h.max()) + 1.0) * 1e6
+    ok = alive & alive.T
+    h_eff = np.where(ok, h, penalty)
+    # lossy (but live) routes: bias proportional to the worse direction's
+    # compound drop probability, scaled past any clean detour's hop cost
+    h_eff = h_eff + np.maximum(rate, rate.T) * (float(h.max()) + 1.0)
+    np.fill_diagonal(h_eff, 0.0)
+
+    traffic = traffic_matrix(tables, rates)
+    init = tables.tile_of_cluster
+    if init is None:
+        init = default_tile_of_cluster(nc, fabric)
+    p0 = np.asarray(init, dtype=np.int64).copy()
+    p = p0.copy()
+    # evacuate dead tiles before seeding the annealer (its init must comply)
+    tile_count = np.bincount(p, minlength=fabric.n_tiles)
+    for c in np.flatnonzero(~tile_ok[p]):
+        spare = tile_ok & (tile_count < fabric.cores_per_tile)
+        if not spare.any():
+            raise ValueError(
+                f"cannot evacuate cluster {c} from dead tile {int(p[c])}: "
+                "no live tile has spare capacity"
+            )
+        t = int(np.flatnonzero(spare)[np.argmin(h[p[c]][spare])])
+        tile_count[p[c]] -= 1
+        p[c] = t
+        tile_count[t] += 1
+
+    placement, info = optimize_placement(
+        traffic,
+        fabric,
+        init=p.astype(np.int32),
+        seed=seed,
+        anneal_steps=anneal_steps,
+        hop_matrix=h_eff,
+        allowed_tiles=tile_ok,
     )
+    pair_alive = alive[placement[:, None], placement[None, :]]
+    stranded = traffic * ~pair_alive
+    np.fill_diagonal(stranded, 0.0)  # a cluster's self-traffic stays on-tile
+    bad = np.argwhere(stranded > 0)
+    cost_true = placement_cost(traffic, h, placement)
+    total = float(traffic.sum())
+    report = {
+        **info,
+        "feasible": bool(stranded.sum() == 0),
+        "unreachable_traffic": float(stranded.sum()),
+        "unreachable_pairs": [(int(a), int(b)) for a, b in bad],
+        "moved_clusters": np.flatnonzero(placement != p0).tolist(),
+        "mean_hops_final_true": cost_true / total if total else 0.0,
+    }
+    return placement, report
 
 
 # ---------------------------------------------------------------------------

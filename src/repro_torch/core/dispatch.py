@@ -364,9 +364,11 @@ class FabricBackend(DispatchBackend):
 
     ``tile_of_cluster`` pins the placement (default: hierarchical linear);
     per-event constants are precomputed once per cluster count
-    (``routing.build_delivery_model``). ``repro``'s TPU knobs ``block_c``
-    and ``interpret`` have no counterpart; ``faults`` must be ``None``
-    (fault injection is not ported yet).
+    (``routing.build_delivery_model``). ``faults`` (a
+    :class:`~repro_torch.core.faults.FaultSpec`) severs routes on both paths
+    through one per-SRAM-entry mask (:meth:`entry_alive_for`): the ring path
+    bakes it into the entry table, the roll path gathers it per queued event.
+    ``repro``'s TPU knobs ``block_c`` and ``interpret`` have no counterpart.
     """
 
     def __init__(
@@ -381,11 +383,6 @@ class FabricBackend(DispatchBackend):
         per_link_stats: bool = False,
         kernel: bool = True,
     ):
-        if faults is not None:
-            raise NotImplementedError(
-                "fault injection (FaultSpec) is not ported yet; it comes with the "
-                "faults slice of the port (ROADMAP queue 1, 'Faults and recovery')"
-            )
         self.fabric = fabric if fabric is not None else routing.Fabric()
         self.tile_of_cluster = tile_of_cluster
         self.dt = float(dt)
@@ -394,8 +391,12 @@ class FabricBackend(DispatchBackend):
         self.ring = bool(ring)
         self.per_link_stats = bool(per_link_stats)
         self.kernel = bool(kernel)
+        self.faults = faults
+        if faults is not None:
+            faults.validate(self.fabric)
         self._models: dict[int, routing.FabricDeliveryModel] = {}
         self._arrays: dict[tuple[int, torch.device], dict[str, torch.Tensor]] = {}
+        self._entry_alive_cache: dict[tuple, tuple] = {}
 
     def model_for(self, n_clusters: int) -> routing.FabricDeliveryModel:
         """The (cached) :class:`~repro_torch.core.routing.FabricDeliveryModel`
@@ -404,7 +405,7 @@ class FabricBackend(DispatchBackend):
         if model is None:
             model = routing.build_delivery_model(
                 self.fabric, n_clusters, self.dt, tile_of_cluster=self.tile_of_cluster,
-                vdd=self.vdd, link_capacity=self.link_capacity,
+                vdd=self.vdd, link_capacity=self.link_capacity, faults=self.faults,
             )
             self._models[n_clusters] = model
         return model
@@ -452,16 +453,44 @@ class FabricBackend(DispatchBackend):
         return ring, torch.zeros((), dtype=torch.int32, device=dev)
 
     def build_entries(self, src_tag, src_dest, cluster_size: int, k_tags: int,
-                      device: torch.device | str = "cuda"):
+                      device: torch.device | str = "cuda", entry_alive=None):
         """Static per-SRAM-entry table for the ring path (host-side, once per
-        engine); see kernels/fabric_deliver/ops.py."""
+        engine); see kernels/fabric_deliver/ops.py. Under ``faults`` the
+        severed entries come from the model's fault matrices unless
+        ``entry_alive`` is given."""
         from repro_torch.kernels.fabric_deliver import ops as fabric_ops
 
         n_clusters = src_tag.shape[0] // cluster_size
         return fabric_ops.build_fabric_entries(
             src_tag, src_dest, cluster_size, k_tags, self.model_for(n_clusters),
-            device=device,
+            device=device, entry_alive=entry_alive,
         )
+
+    def entry_alive_for(self, src_tag, src_dest, cluster_size: int):
+        """Per-SRAM-entry survival mask ``[N, E]`` bool, or ``None``.
+
+        ``None`` when no fault severs a route (the roll path then skips the
+        per-event gather). The mask lies on ``src_tag``'s device when that is
+        a tensor, else it is numpy. Cached per table identity (the cache
+        holds the tables, so an identity is never reused while cached), so
+        repeat engine builds do not redraw the erasure Bernoulli.
+        """
+        if self.faults is None or not self.faults.routes_faulted:
+            return None
+        key = (id(src_tag), id(src_dest), cluster_size)
+        cached = self._entry_alive_cache.get(key)
+        if cached is None:
+            from repro_torch.core.faults import entry_alive_mask
+
+            tag_np = np.asarray(torch.as_tensor(src_tag).cpu())
+            dest_np = np.asarray(torch.as_tensor(src_dest).cpu())
+            model = self.model_for(tag_np.shape[0] // cluster_size)
+            mask = entry_alive_mask(tag_np, dest_np, cluster_size, model)
+            if mask is not None and isinstance(src_tag, torch.Tensor):
+                mask = torch.as_tensor(mask, device=src_tag.device)
+            cached = (src_tag, src_dest, mask)
+            self._entry_alive_cache[key] = cached
+        return cached[2]
 
     def deliver_fabric_ring(
         self,
@@ -505,6 +534,7 @@ class FabricBackend(DispatchBackend):
         external_activity=None,
         queue_capacity=None,
         syn_onehot=None,
+        entry_alive=None,  # [N, E] bool fault-survival mask (None: from faults)
     ):
         """Roll fabric step: ``(drive, new_inflight, DeliveryStats)``.
 
@@ -515,6 +545,10 @@ class FabricBackend(DispatchBackend):
         n_clusters = n // cluster_size
         model = self.model_for(n_clusters)
         arrs = self.arrays_for(n_clusters, spikes.device)
+        if entry_alive is None and self.faults is not None:
+            entry_alive = self.entry_alive_for(src_tag, src_dest, cluster_size)
+        if entry_alive is not None:
+            entry_alive = torch.as_tensor(entry_alive, dtype=torch.bool, device=spikes.device)
         capacity = n if queue_capacity is None else queue_capacity
         queue = compact_events(spikes, capacity)
         route = stage1_route_events_fabric(
@@ -522,7 +556,7 @@ class FabricBackend(DispatchBackend):
             arrs["cluster_tile"], arrs["delay_steps"], model.n_tiles, model.max_delay,
             model.link_capacity, mesh_hops=arrs["mesh_hops"],
             latency_s=arrs["latency_s"], energy_j=arrs["energy_j"],
-            per_link_stats=self.per_link_stats,
+            entry_alive=entry_alive, per_link_stats=self.per_link_stats,
         )
         a, new_inflight = advance_inflight(route.buffer, inflight, model.max_delay)
         if external_activity is not None:

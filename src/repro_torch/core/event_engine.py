@@ -22,7 +22,11 @@ backend, never the plain stage 2); a ``dense`` winner bypasses the AER
 queue compaction while keeping the ``(spikes, stats)`` output.
 
 ``EventEngine.reset_slots(carry, mask)`` restores masked slots to fresh
-state so a session pool can admit and evict tenants independently.
+state so a session pool can admit and evict tenants independently;
+``extract_slots`` / ``splice_slots`` move slots' full runtime state (the
+fabric delay line included) between engines as a host-side
+:class:`SlotCarry`. A fabric built with ``faults`` (a ``FaultSpec``) severs
+the same SRAM entries on the ring and the roll path.
 
 ``dense_reference_step`` is the oracle: the same network as one dense
 ``[N, N, 4]`` connectivity tensor.
@@ -53,10 +57,31 @@ from repro_torch.core.two_stage import N_SYN_TYPES, precompute_syn_onehot
 __all__ = [
     "EventEngine",
     "DeliveryStats",
+    "SlotCarry",
     "reset_slots",
     "dense_weights_from_tables",
     "dense_reference_step",
 ]
+
+
+@dataclasses.dataclass
+class SlotCarry:
+    """Host-side serialization of a set of batch slots' full runtime state.
+
+    Produced by :meth:`EventEngine.extract_slots`, consumed by
+    :meth:`EventEngine.splice_slots`: the unit of session migration between
+    engines (DESIGN.md §15). All leaves are numpy with leading dim ``S``
+    (the extracted slot count). ``inflight`` is the delay-line state in the
+    phase-normalized roll layout (``inflight[:, i]`` holds tag activity
+    arriving ``i + 1`` steps after extraction), whether the source engine
+    ran the ring or the roll buffer, so a slot can be spliced across
+    delivery modes and across engines whose ring cursors disagree. ``None``
+    when the source engine had no fabric.
+    """
+
+    state: NeuronState  # numpy leaves, each [S, ...]
+    spikes: np.ndarray  # [S, N] previous-step spikes
+    inflight: np.ndarray | None  # [S, max_delay, n_clusters, K] or None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,13 +157,22 @@ class EventEngine:
             cam_syn=cam_syn,
             cam_syn_onehot=precompute_syn_onehot(cam_syn),
         )
+        # fault injection (DESIGN.md §15): the per-SRAM-entry survival mask is
+        # drawn once, so both delivery paths see the same erasure pattern: the
+        # ring path bakes it into FabricEntries.alive, the roll path gathers
+        # it per queued event
+        self._fault_entry_alive = None
+        if self.fabric_backend is not None:
+            self._fault_entry_alive = self.fabric_backend.entry_alive_for(
+                self.tables.src_tag, self.tables.src_dest, self.cluster_size
+            )
         # ring mode (DESIGN.md §14): a static per-SRAM-entry table, built once
         self.fabric_ring = self.fabric_backend is not None and self.fabric_backend.ring
         self._fabric_entries = None
         if self.fabric_ring:
             self._fabric_entries = self.fabric_backend.build_entries(
                 tables.src_tag, tables.src_dest, self.cluster_size, self.k_tags,
-                device=self.device,
+                device=self.device, entry_alive=self._fault_entry_alive,
             )
 
     def _autotune(self, tables, fabric, autotune) -> str:
@@ -265,7 +299,7 @@ class EventEngine:
                 prev_spikes, t.src_tag, t.src_dest, t.cam_tag, t.cam_syn,
                 self.cluster_size, self.k_tags, inflight=inflight,
                 external_activity=input_activity, queue_capacity=self.queue_capacity,
-                syn_onehot=t.cam_syn_onehot,
+                syn_onehot=t.cam_syn_onehot, entry_alive=self._fault_entry_alive,
             )
             state, spikes = neuron_mod.neuron_step(state, drive, self.params, i_ext)
             return (state, spikes, inflight), (spikes, stats)
@@ -313,6 +347,146 @@ class EventEngine:
             )
         fresh = self.init_state(batch=tuple(mask.shape))
         return reset_slots(carry, mask, fresh)
+
+    # ------------------------------------------------------------------
+    # Slot migration (DESIGN.md §15): extract_slots / splice_slots generalize
+    # reset_slots. Instead of wiping a slot, they serialize its complete
+    # runtime state (the fabric delay line included), so surviving sessions
+    # can move onto a repaired engine or come back from a checkpoint.
+    def _check_slot_index(self, slots, batch: int) -> np.ndarray:
+        idx = np.atleast_1d(np.asarray(slots, dtype=np.int64))
+        if idx.ndim != 1 or idx.size == 0:
+            raise ValueError("slots must be a non-empty 1-D index sequence")
+        if np.unique(idx).size != idx.size:
+            raise ValueError(f"slots must be unique, got {idx.tolist()}")
+        if np.any(idx < 0) or np.any(idx >= batch):
+            raise ValueError(
+                f"slots {idx.tolist()} out of range for batch size {batch}"
+            )
+        return idx
+
+    def extract_slots(self, carry, slots) -> SlotCarry:
+        """Serialize ``slots``' full per-slot runtime state to the host.
+
+        The carry must bear exactly one leading batch dim (a session pool).
+        Ring-mode delay state is phase-normalized on the way out: wheel slot
+        ``(cursor + i) % (max_delay + 1)`` holds the events arriving in
+        ``i + 1`` steps, so the returned ``inflight[:, i]`` has the roll
+        layout and the wheel phase does not travel with the snapshot.
+        """
+        if carry[1].ndim != 2:
+            raise ValueError(
+                "extract_slots needs a carry with one leading batch dim, got "
+                f"spikes shape {tuple(carry[1].shape)}"
+            )
+        idx = self._check_slot_index(slots, carry[1].shape[0])
+        sel = torch.as_tensor(idx, device=carry[1].device)
+
+        def host(x):
+            return x.index_select(0, sel).cpu().numpy()
+
+        state = NeuronState(**{f.name: host(getattr(carry[0], f.name))
+                               for f in dataclasses.fields(NeuronState)})
+        inflight = None
+        if self.fabric_backend is not None:
+            if self.fabric_ring:
+                ring = carry[2]  # [B, max_delay + 1, nc, K]
+                cur = int(carry[3])
+                d1 = ring.shape[-3]
+                order = torch.as_tensor((cur + np.arange(d1 - 1)) % d1, device=ring.device)
+                inflight = ring.index_select(0, sel).index_select(1, order).cpu().numpy()
+            else:
+                inflight = host(carry[2])
+        return SlotCarry(state=state, spikes=host(carry[1]), inflight=inflight)
+
+    def splice_slots(self, carry, slots, sc: SlotCarry):
+        """Write ``sc``'s serialized slots into ``carry`` at ``slots``.
+
+        The inverse of :meth:`extract_slots`, on this engine's carry; the
+        source engine may differ (migration onto a repaired placement, or a
+        restore into a fresh pool). Neuron count, cluster count and K must
+        match. Delay-line contents are re-bucketed when the two engines'
+        ``max_delay`` differ: shorter horizons gain zero tail slots; longer
+        horizons fold the excess tail into the last slot (events arrive
+        earlier than on the source fabric: best effort; the exchange is
+        bit-exact when the horizons agree). Returns a new carry; unlisted
+        slots are untouched bit for bit.
+        """
+        spikes_t = carry[1]
+        if spikes_t.ndim != 2:
+            raise ValueError(
+                "splice_slots needs a carry with one leading batch dim, got "
+                f"spikes shape {tuple(spikes_t.shape)}"
+            )
+        idx = self._check_slot_index(slots, spikes_t.shape[0])
+        sp = np.asarray(sc.spikes)
+        if sp.shape[0] != idx.size:
+            raise ValueError(f"{idx.size} slots but SlotCarry holds {sp.shape[0]}")
+        if sp.shape[-1] != self.n_neurons:
+            raise ValueError(
+                f"SlotCarry has {sp.shape[-1]} neurons, engine has {self.n_neurons}"
+            )
+        sel = torch.as_tensor(idx, device=spikes_t.device)
+
+        def put(cur, new, what):
+            new = torch.as_tensor(np.asarray(new), dtype=cur.dtype, device=cur.device)
+            want = (idx.size, *cur.shape[1:])
+            if tuple(new.shape) != want:
+                raise ValueError(
+                    f"SlotCarry {what} shape {tuple(new.shape)} != "
+                    f"expected {want} — a mismatched leaf must raise, not "
+                    "broadcast into the pool"
+                )
+            return cur.index_copy(0, sel, new)
+
+        state = NeuronState(**{
+            f.name: put(getattr(carry[0], f.name), getattr(sc.state, f.name), "state leaf")
+            for f in dataclasses.fields(NeuronState)
+        })
+        spikes = put(spikes_t, sp, "spikes")
+        if self.fabric_backend is None:
+            if sc.inflight is not None and np.any(np.asarray(sc.inflight)):
+                raise ValueError(
+                    "SlotCarry holds in-flight fabric events but the target "
+                    "engine has no fabric delay line to receive them"
+                )
+            return (state, spikes)
+        d_t = self.fabric_model.max_delay
+        if sc.inflight is None:
+            inflight = np.zeros((idx.size, d_t, self.n_clusters, self.k_tags), np.float32)
+        else:
+            inflight = np.asarray(sc.inflight)
+            if inflight.shape[-2:] != (self.n_clusters, self.k_tags):
+                raise ValueError(
+                    f"SlotCarry in-flight grid {inflight.shape[-2:]} != "
+                    f"engine ({self.n_clusters}, {self.k_tags})"
+                )
+            d_s = inflight.shape[1]
+            if d_s > d_t:  # fold the excess tail into the last live slot
+                if d_t == 0:
+                    if np.any(inflight):
+                        raise ValueError(
+                            "target engine has no delay line (max_delay=0) "
+                            "but the SlotCarry holds in-flight events"
+                        )
+                    inflight = inflight[:, :0]
+                else:
+                    inflight = np.concatenate(
+                        [inflight[:, : d_t - 1],
+                         inflight[:, d_t - 1:].sum(axis=1, keepdims=True)],
+                        axis=1,
+                    )
+            elif d_s < d_t:
+                pad = np.zeros((idx.size, d_t - d_s, *inflight.shape[2:]), inflight.dtype)
+                inflight = np.concatenate([inflight, pad], axis=1)
+        if self.fabric_ring:
+            ring, cursor = carry[2], carry[3]
+            cur = int(cursor)
+            d1 = d_t + 1
+            rows = np.zeros((idx.size, d1, *inflight.shape[2:]), inflight.dtype)
+            rows[:, (cur + np.arange(d_t)) % d1] = inflight
+            return (state, spikes, put(ring, rows, "ring"), cursor)
+        return (state, spikes, put(carry[2], inflight, "in-flight buffer"))
 
     def run(self, carry, input_events, i_ext=None):
         """Step T times; returns ``(final carry, spikes [T, ..., N])`` — with

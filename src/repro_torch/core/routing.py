@@ -10,9 +10,6 @@ parameterized by the measured chip constants (Tables II/III).
 Geometry: a ``grid_x x grid_y`` 2D mesh of tiles (chips); each tile has
 ``cores_per_tile`` cores behind one R2 tree and one R3 mesh router; each core
 has ``neurons_per_core`` neurons behind an R1 router.
-
-Fault injection (``faults=``) is not ported yet: only ``faults=None`` is
-accepted, and the model's ``pair_alive``/``pair_drop_rate`` stay ``None``.
 """
 
 from __future__ import annotations
@@ -280,8 +277,10 @@ class FabricDeliveryModel:
     energy_j: np.ndarray  # [nc, nc] float32 per-event energy (Table III/IV)
     link_capacity: int  # events per directed inter-tile link per step
     max_delay: int  # delay_steps.max()
-    # fault injection (DESIGN.md §15) is not ported yet: these stay None
-    # (a healthy fabric)
+    # fault injection (core/faults.py, DESIGN.md §15): None = healthy fabric.
+    # pair_alive[a, b] False = cluster pair unreachable (dead tile/link on the
+    # XY route — a dead link is a zero-capacity link); pair_drop_rate[a, b] is
+    # the compound stochastic loss along the route.
     pair_alive: np.ndarray | None = None  # [nc, nc] bool
     pair_drop_rate: np.ndarray | None = None  # [nc, nc] float32
     faults: object | None = None  # the FaultSpec these matrices came from
@@ -294,7 +293,7 @@ def build_delivery_model(
     tile_of_cluster: np.ndarray | None = None,
     vdd: float = 1.3,
     link_capacity: int | None = None,
-    faults=None,  # only None: fault injection is not ported yet
+    faults=None,  # faults.FaultSpec | None
 ) -> FabricDeliveryModel:
     """Precompute the per-cluster-pair fabric constants for a placement.
 
@@ -309,15 +308,13 @@ def build_delivery_model(
     directed tile pair per step (each pair modeled as a virtual channel;
     physical XY link sharing is not modeled).
 
-    ``faults`` must be ``None``: topology faults (``FaultSpec``) come with
-    the faults slice of the port (ROADMAP queue 1, 'Faults and recovery')
-    and raise ``NotImplementedError`` here.
+    ``faults`` (a :class:`~repro_torch.core.faults.FaultSpec`) injects
+    topology faults: cluster pairs whose XY route crosses a dead tile/link
+    become unreachable (``pair_alive`` False — zero effective capacity),
+    lossy links compound into ``pair_drop_rate``. The fault matrices ride on
+    the returned model so every delivery path derives its liveness masks
+    from one place.
     """
-    if faults is not None:
-        raise NotImplementedError(
-            "fault injection (FaultSpec) is not ported yet; it comes with the "
-            "faults slice of the port (ROADMAP queue 1, 'Faults and recovery')"
-        )
     if dt <= 0:
         raise ValueError(f"dt must be positive, got {dt}")
     tiles = validate_placement(fabric, n_clusters, tile_of_cluster)
@@ -341,6 +338,11 @@ def build_delivery_model(
         link_capacity = max(1, int(c.r3_throughput_eps * dt))
     elif link_capacity <= 0:
         raise ValueError(f"link_capacity must be positive, got {link_capacity}")
+    pair_alive = pair_drop_rate = None
+    if faults is not None and faults.routes_faulted:
+        from .faults import pair_fault_matrices
+
+        pair_alive, pair_drop_rate = pair_fault_matrices(fabric, tiles, faults)
     return FabricDeliveryModel(
         tile_of_cluster=tiles,
         n_tiles=fabric.n_tiles,
@@ -350,6 +352,9 @@ def build_delivery_model(
         energy_j=energy.astype(np.float32),
         link_capacity=int(link_capacity),
         max_delay=int(delay.max(initial=0)),
+        pair_alive=pair_alive,
+        pair_drop_rate=pair_drop_rate,
+        faults=faults if pair_alive is not None else None,
     )
 
 

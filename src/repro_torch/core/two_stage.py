@@ -293,6 +293,7 @@ def stage1_route_events_fabric(
     latency_s: torch.Tensor | None = None,
     energy_j: torch.Tensor | None = None,
     cursor: torch.Tensor | None = None,  # time-wheel write cursor (ring addressing)
+    entry_alive: torch.Tensor | None = None,  # [N, E] bool fault mask (§15)
     per_link_stats: bool = False,  # keep drop/delivered attribution (§18)
 ) -> FabricRouteResult:
     """Event-sparse stage 1 through the R1/R2/R3 fabric.
@@ -311,10 +312,24 @@ def stage1_route_events_fabric(
     ``cursor`` set, an event with delay ``d`` lands in slot ``(cursor + d)
     % (max_delay + 1)`` (the time-wheel ring, DESIGN.md §14); arbitration,
     drops and stats are unchanged. ``repro``'s ``src_cluster_offset``
-    (sharded fabric) and ``entry_alive`` (faults) are not ported yet.
+    (sharded fabric) is not ported yet.
+
+    ``entry_alive`` is the static per-SRAM-entry fault mask of
+    :func:`repro_torch.core.faults.entry_alive_mask`: a ``False`` entry's
+    events are dropped before link arbitration (they never consume a live
+    link's FIFO slots) and counted in ``link_dropped``, as the ring path's
+    severed entries are. With ``per_link_stats`` an intra-tile fault drop
+    lands on its tile's self-link diagonal, so the per-link bins sum to the
+    scalar count.
     """
     ev_tag, ev_dest = gather_event_entries(queue, src_tag, src_dest)  # [..., Q, E]
     valid = ev_tag >= 0
+    fault_mask = None
+    if entry_alive is not None:
+        safe = queue.src.clamp(0, src_tag.shape[0] - 1).long()
+        ev_alive = entry_alive[safe]  # [..., Q, E]
+        fault_mask = valid & ~ev_alive
+        valid = valid & ev_alive
     src_cl = torch.where(queue.src >= 0, torch.div(queue.src, cluster_size,
                                                    rounding_mode="floor"), 0)
     src_cl_e = src_cl[..., None].expand(ev_tag.shape).long()  # [..., Q, E]
@@ -337,9 +352,17 @@ def stage1_route_events_fabric(
     if per_link_stats:
         link_bins = src_tile * n_tiles + dst_tile
         link_dropped = _scatter_count(cross & ~keep_cross, link_bins, n_tiles * n_tiles)
+        if fault_mask is not None:
+            fault_bins = torch.where(src_tile != dst_tile, link_bins,
+                                     src_tile * n_tiles + src_tile)
+            link_dropped = link_dropped + _scatter_count(
+                fault_mask, fault_bins, n_tiles * n_tiles
+            )
         delivered = _scatter_count(kept, pair, n_clusters * n_clusters)
     else:
         link_dropped = (cross & ~keep_cross).sum((-1, -2), dtype=torch.int32)
+        if fault_mask is not None:
+            link_dropped = link_dropped + fault_mask.sum((-1, -2), dtype=torch.int32)
         delivered = kept.sum((-1, -2), dtype=torch.int32)
 
     delay = delay_steps.reshape(-1)[pair].long()

@@ -70,8 +70,9 @@ class FabricEntries:
     ``link_start[m]`` is the index of row ``m``'s link-group start, so an
     active entry's FIFO position is a prefix-count difference. ``valid`` is
     ``False`` only on the single pad row of an entry-less table. ``alive``
-    is all ``True``: statically severed entries come with fault injection
-    (ROADMAP queue 1, 'Faults and recovery').
+    is ``False`` on an entry that fault injection severs statically (see
+    :func:`build_fabric_entries`), and ``severed`` says whether any is: a
+    healthy table's ring step runs no fault-mask operation.
 
     ``cluster_start [n_clusters + 1]`` and ``cluster_order [M]`` group the
     rows by destination cluster (:func:`entry_cluster_ranges`): the rows of
@@ -92,9 +93,17 @@ class FabricEntries:
     latency_s: torch.Tensor  # [M] float32 per-event latency (Table II)
     energy_j: torch.Tensor  # [M] float32 per-event energy (Table III/IV)
     valid: torch.Tensor  # [M] bool
+    # fault injection (DESIGN.md §15): a False entry is statically severed
+    # (dead tile/link or Bernoulli route erasure): its events always drop,
+    # are counted in link_dropped, and never consume link-FIFO capacity
     alive: torch.Tensor  # [M] bool
     cluster_start: torch.Tensor  # [n_clusters + 1] int32 offsets into cluster_order
     cluster_order: torch.Tensor  # [M] int32 row ids grouped by destination cluster
+
+    @functools.cached_property
+    def severed(self) -> bool:
+        """Whether some entry is severed (read from the device once per table)."""
+        return not bool(self.alive.all())
 
 
 _COLUMNS = tuple(f.name for f in dataclasses.fields(FabricEntries))
@@ -136,20 +145,35 @@ def build_fabric_entries(
     k_tags: int,
     model,  # routing.FabricDeliveryModel
     device: torch.device | str = "cuda",
+    entry_alive=None,  # [N, E] bool fault mask (numpy or tensor; faults.entry_alive_mask)
 ) -> FabricEntries:
     """Host-side precompute of the static entry table (numpy, once per
-    engine), uploaded to ``device``."""
+    engine), uploaded to ``device``.
+
+    ``entry_alive`` (from :func:`repro_torch.core.faults.entry_alive_mask`,
+    or derived here from the model's fault matrices when omitted) statically
+    severs faulted entries: they keep their table row, so the fault is
+    observable as a per-step ``link_dropped`` count, but never deliver and
+    never occupy link-FIFO capacity (a dead link has no FIFO). A severed
+    entry reaches the kernel as weight 0.
+    """
     src_tag = np.asarray(torch.as_tensor(src_tag).cpu())
     src_dest = np.asarray(torch.as_tensor(src_dest).cpu())
     n_clusters = np.asarray(model.tile_of_cluster).shape[0]
+    if entry_alive is None and getattr(model, "pair_alive", None) is not None:
+        from repro_torch.core.faults import entry_alive_mask
+
+        entry_alive = entry_alive_mask(src_tag, src_dest, cluster_size, model)
     src_ids, e_ids = np.nonzero(src_tag >= 0)
     if src_ids.size == 0:  # entry-less table: one inert pad row
         return _to_device(_pad_entries(), device, n_clusters, k_tags)
     tag = src_tag[src_ids, e_ids].astype(np.int64)
     dst = np.clip(src_dest[src_ids, e_ids], 0, n_clusters - 1).astype(np.int64)
+    alive = (None if entry_alive is None
+             else np.asarray(torch.as_tensor(entry_alive).cpu())[src_ids, e_ids])
     return _to_device(
-        _entries_from_raw(src_ids, e_ids, tag, dst, cluster_size, k_tags, model), device,
-        n_clusters, k_tags,
+        _entries_from_raw(src_ids, e_ids, tag, dst, cluster_size, k_tags, model, alive),
+        device, n_clusters, k_tags,
     )
 
 
@@ -167,7 +191,7 @@ def _pad_entries() -> dict[str, np.ndarray]:
 
 
 def _entries_from_raw(
-    src_ids, e_ids, tag, dst, cluster_size, k_tags, model
+    src_ids, e_ids, tag, dst, cluster_size, k_tags, model, alive=None
 ) -> dict[str, np.ndarray]:
     """Arbitration-order sort + static per-entry figures from raw entry rows.
 
@@ -202,7 +226,7 @@ def _entries_from_raw(
         "latency_s": np.asarray(model.latency_s)[cl_s, dst_s].astype(np.float32),
         "energy_j": np.asarray(model.energy_j)[cl_s, dst_s].astype(np.float32),
         "valid": np.ones(m, bool),
-        "alive": np.ones(m, bool),
+        "alive": np.ones(m, bool) if alive is None else np.asarray(alive, bool)[order],
     }
 
 
@@ -411,13 +435,20 @@ def fabric_deliver_ring(
         dropped = (pos[..., -1] - cap).clamp(min=0)
 
     act_e = torch.index_select(in_q, -1, entries.src) & entries.valid  # [..., M]
+    # fault-severed entries always drop, counted with the link drops (a dead
+    # link is a zero-capacity link), and never contend for a live link's
+    # FIFO slots
+    fault_mask = None
+    if entries.severed:
+        act_all, act_e = act_e, act_e & entries.alive
+        fault_mask = act_all & ~entries.alive
 
     # per-directed-link FIFO arbitration without a sort: entries are in the
     # arbiter's scan order, so an active cross-tile entry's FIFO position is
     # the count of active cross-tile entries since its link start
     if link_capacity is None:
         kept = act_e
-        drop_mask = torch.zeros_like(act_e)
+        drop_mask = torch.zeros_like(act_e) if fault_mask is None else fault_mask
     else:
         cnt = (act_e & entries.cross).to(torch.int32)
         excl = torch.cumsum(cnt, dim=-1, dtype=torch.int32) - cnt
@@ -425,6 +456,10 @@ def fabric_deliver_ring(
         keep_cross = pos_in_link < link_capacity
         kept = act_e & (~entries.cross | keep_cross)
         drop_mask = act_e & entries.cross & ~keep_cross
+        if fault_mask is not None:
+            # disjoint masks (alive vs severed), so the union's per-bin
+            # counts sum to exactly the scalar fault + overflow totals
+            drop_mask = drop_mask | fault_mask
 
     if per_link_stats:
         if n_tiles is None:

@@ -9,7 +9,10 @@ On the GPU (the default device), the full rwkv6-3b:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --batch 8 \
       --prompt-len 512 --max-new 32 --max-len 544
 
-Prompts are drawn from ``np.random.default_rng(seed)``.
+Prompts are drawn from ``np.random.default_rng(seed)``. With ``--ckpt-dir``
+the model's parameters come from the directory's latest checkpoint when it
+has one; otherwise the freshly initialised parameters are saved there as
+step 0, so a later run serves the same weights.
 """
 
 from __future__ import annotations
@@ -20,9 +23,23 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import Engine, ServeConfig
+
+
+def load_or_save_params(model: torch.nn.Module, ckpt_dir: str) -> int | None:
+    """Load ``model``'s parameters from the latest checkpoint under
+    ``ckpt_dir`` and return its step; with no checkpoint there, save the
+    current parameters as step 0 and return ``None``."""
+    ckpt = Checkpointer(ckpt_dir)
+    step = ckpt.latest_step()
+    if step is None:
+        ckpt.save(0, {"params": model.state_dict()}, blocking=True)
+        return None
+    model.load_state_dict(ckpt.restore(step, {"params": model.state_dict()})["params"])
+    return step
 
 
 def main(argv: list[str] | None = None) -> torch.Tensor:
@@ -38,14 +55,13 @@ def main(argv: list[str] | None = None) -> torch.Tensor:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "--ckpt-dir: checkpoints are not ported to repro_torch yet "
-            "(ROADMAP queue 1, 'Faults and recovery')"
-        )
 
     cfg = get_config(args.arch, smoke=args.smoke)
     model = build_model(cfg, device=args.device, seed=args.seed)
+    if args.ckpt_dir:
+        step = load_or_save_params(model, args.ckpt_dir)
+        print(f"saved checkpoint step 0 to {args.ckpt_dir}" if step is None
+              else f"loaded checkpoint step {step}")
     engine = Engine(model, ServeConfig(max_len=args.max_len, temperature=args.temperature,
                                        seed=args.seed))
     prompts = np.random.default_rng(args.seed).integers(

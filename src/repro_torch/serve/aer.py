@@ -19,6 +19,13 @@ measured traffic that ``optimize_placement`` re-places against. The pool's
 ``fingerprint()`` identifies its serving geometry as ``repro``'s does for a
 single resident model named ``"default"``.
 
+Recovery (DESIGN.md §15): a free slot can be quarantined (withdrawn from
+admission); a live session moves between pools with its full runtime state
+(``extract_session`` / ``inject_session``, ``clone_onto`` for the whole
+pool); and the pool checkpoints as one tree (``snapshot_tree``,
+``checkpoint``) that ``restore`` resumes bit for bit on an engine of the
+same geometry.
+
 Input enters through ``CompiledCnn.input_activity`` with an explicit
 malformed-packet policy (``on_invalid``); under ``"raise"`` a bad packet
 faults its session, not the pool. Readout is the paper's majority rule over
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import json
 from collections import deque
 
 import numpy as np
@@ -41,10 +49,10 @@ from repro_torch.core.cnn import (
     poker_neuron_params,
 )
 from repro_torch.core.compiler import TrafficProfile
-from repro_torch.core.event_engine import DeliveryStats, EventEngine
+from repro_torch.core.event_engine import DeliveryStats, EventEngine, SlotCarry
 from repro_torch.core.routing import Fabric
 from repro_torch.core.tags import RoutingTables
-from repro_torch.data.pipeline import DvsStreamSource, symbol_dvs_events
+from repro_torch.data.pipeline import DvsStreamConfig, DvsStreamSource, symbol_dvs_events
 
 __all__ = [
     "AerServeConfig",
@@ -53,18 +61,74 @@ __all__ = [
     "AerSessionPool",
     "PoolFullError",
     "SlotError",
+    "CheckpointMismatchError",
     "build_poker_engine",
+    "session_from_meta",
     "tune_poker_readout",
 ]
 
+# the pool's one resident model, named as repro names a single-model pool's
+_MODEL = "default"
+
+
+def session_from_meta(
+    sm: dict, models, source_factory=None, slot: int | None = None
+) -> "DvsSession":
+    """Rebuild a :class:`DvsSession` from its checkpoint meta blob entry.
+
+    ``models`` names the restoring pool's resident models (a dict or a
+    sequence of names); a session of another model raises
+    :class:`CheckpointMismatchError`. Sources that are not a
+    :class:`DvsStreamSource` need ``source_factory(slot_meta) -> source``,
+    else this raises ``TypeError``.
+    """
+    src_meta = sm["source"]
+    if src_meta.get("kind") == "dvs_stream":
+        source = DvsStreamSource(
+            DvsStreamConfig(**src_meta["cfg"]), session_id=src_meta["session_id"]
+        )
+    elif source_factory is not None:
+        source = source_factory(sm)
+    else:
+        raise TypeError(
+            f"slot {slot}'s source kind {src_meta.get('kind')!r} is not "
+            "serializable — pass source_factory to rebuild it"
+        )
+    names = list(models)
+    model = sm.get("model")
+    if model is None and len(names) == 1:
+        model = names[0]
+    if model not in names:
+        raise CheckpointMismatchError(
+            f"slot {slot}'s session ran on model {model!r}, which is "
+            f"not resident in the restoring pool ({names})"
+        )
+    return DvsSession(
+        session_id=sm["session_id"],
+        source=source,
+        label=sm["label"],
+        tenant=sm.get("tenant"),
+        step=int(sm["step"]),
+        counts=None if sm["counts"] is None else np.asarray(sm["counts"], dtype=np.float64),
+        dropped=int(sm["dropped"]),
+        link_dropped=int(sm["link_dropped"]),
+        error=sm["error"],
+    )
+
 
 class PoolFullError(RuntimeError):
-    """``admit`` beyond capacity: no free slot remains."""
+    """``admit`` beyond capacity: no free (non-quarantined) slot remains."""
 
 
 class SlotError(ValueError):
-    """A slot operation addressed an invalid target: index out of range or
-    eviction of an unoccupied slot."""
+    """A slot operation addressed an invalid target: index out of range,
+    eviction of an unoccupied slot, or quarantine of an occupied one."""
+
+
+class CheckpointMismatchError(ValueError):
+    """A checkpoint's geometry or resident-model fingerprint does not match
+    the pool restoring it. Raised before any carry state is spliced, so a
+    failed restore never corrupts the pool."""
 
 
 def build_poker_engine(
@@ -73,6 +137,7 @@ def build_poker_engine(
     device: torch.device | str = "cuda",
     fabric_options: dict | None = None,
     autotune: dict | None = None,
+    faults=None,
 ) -> EventEngine:
     """Event engine at the §V serving operating point for a dispatch backend.
 
@@ -84,19 +149,27 @@ def build_poker_engine(
     e.g. ``link_capacity``, ``ring``, ``per_link_stats`` or ``kernel``). The
     AER queue is sized lossless for this workload (``queue_capacity = N``),
     so the ``reference`` and ``cuda`` backends take the dense stage-1 path
-    and ``fused`` queues every active source.
+    and ``fused`` queues every active source. ``faults`` (a
+    :class:`~repro_torch.core.faults.FaultSpec`) needs the fabric backend.
+    Memory faults are applied to the tables beforehand
+    (``faults.apply_table_faults``) and served on any backend.
     """
     if not isinstance(tables, RoutingTables) and hasattr(tables, "tables"):
         tables = tables.tables
     params = poker_neuron_params()
     q_cap = tables.n_neurons
     if backend == "fabric":
+        opts = dict(fabric_options or {})
+        if faults is not None:
+            opts["faults"] = faults
         if autotune is not None:
             raise ValueError("autotune applies to backend='auto', not fabric")
         return EventEngine(
             tables, params, queue_capacity=q_cap, device=device, fabric=Fabric(),
-            fabric_options=dict(fabric_options or {}),
+            fabric_options=opts,
         )
+    if faults is not None:
+        raise ValueError(f"fault injection needs the fabric backend, got {backend!r}")
     if fabric_options is not None:
         raise ValueError(f"fabric_options need the fabric backend, got {backend!r}")
     return EventEngine(tables, params, backend=backend, queue_capacity=q_cap, device=device,
@@ -222,6 +295,7 @@ class AerSessionPool:
         self.n_classes = cc.cfg.n_classes
         self.carry = engine.init_state(batch=cfg.pool_size)
         self.slots: list[DvsSession | None] = [None] * cfg.pool_size
+        self.quarantined: set[int] = set()  # slots withdrawn from admission
         self.n_steps = 0  # engine steps taken (all slots advance together)
         self.last_stats = None  # DeliveryStats of the most recent step()
         self._zero_act = np.zeros((engine.n_clusters, engine.k_tags), dtype=np.float32)
@@ -241,7 +315,7 @@ class AerSessionPool:
         eng = self.engine
         mode = "ring" if eng.fabric_ring else "fabric" if eng.fabric_backend is not None else "queued"
         h = hashlib.sha256()
-        h.update(_registry_fingerprint({"default": self.cc.tables}).encode())
+        h.update(_registry_fingerprint({_MODEL: self.cc.tables}).encode())
         h.update(f"|{mode}|P{self.cfg.pool_size}".encode())
         if eng.autotune_decision is not None:
             h.update(f"|{eng.autotune_decision.token()}".encode())
@@ -254,15 +328,33 @@ class AerSessionPool:
 
     @property
     def free_slots(self) -> list[int]:
-        return [i for i, s in enumerate(self.slots) if s is None]
+        return [i for i, s in enumerate(self.slots) if s is None and i not in self.quarantined]
+
+    def quarantine_slot(self, slot: int) -> None:
+        """Withdraw a free slot from admission (a suspected-faulty lane).
+
+        The watchdog (serve/health.py) quarantines a slot whose successive
+        tenants keep faulting. Only free slots can be quarantined: evict the
+        tenant first so its result and the slot reset take the normal path.
+        """
+        if not 0 <= slot < self.cfg.pool_size:
+            raise SlotError(f"slot {slot} out of range")
+        if self.slots[slot] is not None:
+            raise SlotError(f"slot {slot} is occupied; evict before quarantine")
+        self.quarantined.add(slot)
 
     def admit(self, session: DvsSession) -> int:
         """Claim the lowest free slot for ``session``; raises
-        :class:`PoolFullError` when none remains. The slot was wiped at the
-        previous tenant's eviction, so the session starts from fresh state."""
+        :class:`PoolFullError` when no admissible slot remains (all occupied
+        or quarantined). The slot was wiped at the previous tenant's
+        eviction, so the session starts from fresh state."""
         free = self.free_slots
         if not free:
-            raise PoolFullError("session pool is full; evict before admitting")
+            raise PoolFullError(
+                "session pool is full; evict before admitting"
+                if len(self.occupied) == self.cfg.pool_size
+                else "no admissible slot: the pool's free slots are all quarantined"
+            )
         slot = free[0]
         session.step = 0
         session.counts = np.zeros(self.n_classes, dtype=np.float64)
@@ -270,6 +362,68 @@ class AerSessionPool:
         session.link_dropped = 0
         session.error = None  # a re-admitted session retries with a clean slate
         self.slots[slot] = session
+        return slot
+
+    def admit_restored(self, session: DvsSession) -> int:
+        """Claim a free slot for a mid-flight session without resetting its
+        runtime accumulators (the restore and migration path).
+
+        The caller owns the matching carry surgery: ``splice_slots`` the
+        session's serialized state into the slot this returns.
+        """
+        free = self.free_slots
+        if not free:
+            raise PoolFullError("session pool is full; evict before admitting")
+        if session.counts is None:
+            raise ValueError(
+                "admit_restored needs a session with live runtime state — "
+                "use admit() for new sessions"
+            )
+        slot = free[0]
+        self.slots[slot] = session
+        return slot
+
+    def clone_onto(self, new_engine: EventEngine, cfg: AerServeConfig | None = None
+                   ) -> "AerSessionPool":
+        """New pool on ``new_engine`` with every live session migrated: each
+        tenant's neuron state, previous-step spikes and phase-normalized
+        in-flight fabric events (``extract_slots`` / ``splice_slots``) and its
+        readout accumulators. Quarantine records do not carry over."""
+        new_pool = AerSessionPool(self.cc, new_engine, cfg or self.cfg)
+        occ = self.occupied
+        if occ:
+            sc = self.engine.extract_slots(self.carry, occ)
+            target = [new_pool.admit_restored(self.slots[i]) for i in occ]
+            new_pool.carry = new_engine.splice_slots(new_pool.carry, target, sc)
+        new_pool.n_steps = self.n_steps
+        return new_pool
+
+    def extract_session(self, slot: int) -> tuple[DvsSession, SlotCarry]:
+        """Remove the tenant in ``slot`` mid-flight with its runtime state.
+
+        The source half of a live migration: the session carries its readout
+        accumulators and stream cursor, the :class:`SlotCarry` its neuron
+        state, previous-step spikes and phase-normalized delay line. The
+        vacated slot is wiped as an eviction wipes it.
+        """
+        if not 0 <= slot < self.cfg.pool_size:
+            raise SlotError(f"slot {slot} out of range")
+        sess = self.slots[slot]
+        if sess is None:
+            raise SlotError(f"slot {slot} is not occupied")
+        sc = self.engine.extract_slots(self.carry, [slot])
+        self.slots[slot] = None
+        mask = np.zeros(self.cfg.pool_size, dtype=bool)
+        mask[slot] = True
+        self.carry = self.engine.reset_slots(self.carry, mask)
+        return sess, sc
+
+    def inject_session(self, sess: DvsSession, sc: SlotCarry) -> int:
+        """Admit a mid-flight session with its serialized state (the inverse
+        of :meth:`extract_session`; the destination may run another delivery
+        mode). Returns the destination slot."""
+        slot = self.admit_restored(sess)
+        self.carry = self.engine.splice_slots(self.carry, [slot], sc)
         return slot
 
     def evict(self, slot: int) -> SessionResult:
@@ -397,6 +551,123 @@ class AerSessionPool:
         return [
             i for i, s in enumerate(self.slots) if s is not None and self._decision(s)[1]
         ]
+
+    # -- checkpoint / restore (DESIGN.md §15) ------------------------------
+    def _session_meta(self, sess: DvsSession) -> dict:
+        src = sess.source
+        if isinstance(src, DvsStreamSource):
+            source = {
+                "kind": "dvs_stream",
+                "cfg": dataclasses.asdict(src.cfg),
+                "session_id": src.session_id,
+            }
+        else:
+            # restore() rebuilds other sources through its source_factory
+            source = {"kind": type(src).__name__}
+        return {
+            "session_id": sess.session_id,
+            "label": sess.label,
+            "model": _MODEL,
+            "tenant": sess.tenant,
+            "step": sess.step,
+            "counts": None if sess.counts is None else sess.counts.tolist(),
+            "dropped": sess.dropped,
+            "link_dropped": sess.link_dropped,
+            "error": sess.error,
+            "source": source,
+        }
+
+    def snapshot_tree(self) -> dict:
+        """The pool's whole checkpointable state as one tree.
+
+        ``{"carry": <engine carry>, "session_meta": <uint8 JSON blob>}``: the
+        engine carry (neuron state, previous-step spikes and the fabric delay
+        line: ring and cursor, or the roll buffer) and every live session's
+        readout accumulators and stream descriptor.
+        """
+        meta = {
+            "n_steps": self.n_steps,
+            "pool_size": self.cfg.pool_size,
+            "fingerprint": self.fingerprint(),
+            "models": [_MODEL],
+            "quarantined": sorted(self.quarantined),
+            "slots": [None if s is None else self._session_meta(s) for s in self.slots],
+        }
+        blob = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8).copy()
+        return {"carry": self.carry, "session_meta": blob}
+
+    def load_snapshot_tree(self, tree, source_factory=None) -> None:
+        """Apply a :meth:`snapshot_tree` onto this (freshly built) pool.
+
+        Checks the pool size and the serving-geometry fingerprint before any
+        state is installed (:class:`CheckpointMismatchError`), then installs
+        the carry and rebuilds every live session from its meta entry.
+        """
+        meta = json.loads(np.asarray(tree["session_meta"]).astype(np.uint8).tobytes().decode())
+        if int(meta["pool_size"]) != self.cfg.pool_size:
+            raise CheckpointMismatchError(
+                f"checkpoint was taken at pool_size={meta['pool_size']}, "
+                f"restoring into pool_size={self.cfg.pool_size}"
+            )
+        want = meta.get("fingerprint")
+        if want is not None and want != self.fingerprint():
+            raise CheckpointMismatchError(
+                f"checkpoint fingerprint {want[:12]}... does not match the "
+                f"restoring pool's {self.fingerprint()[:12]}... — the engine "
+                "geometry, delivery mode, or resident model set changed "
+                "since the snapshot (restore into the matching pool, or "
+                "migrate with clone_onto after a bit-exact restore)"
+            )
+        slots = [
+            None if sm is None
+            else session_from_meta(sm, [_MODEL], source_factory=source_factory, slot=i)
+            for i, sm in enumerate(meta["slots"])
+        ]
+        self.carry = tree["carry"]
+        self.n_steps = int(meta["n_steps"])
+        self.quarantined = {int(i) for i in meta["quarantined"]}
+        self.slots = slots
+
+    def checkpoint(self, ckptr, step: int | None = None, blocking: bool = False):
+        """Snapshot the pool into ``ckptr`` (checkpoint/checkpointer.py).
+
+        One atomic tree (:meth:`snapshot_tree`). A :class:`DvsStreamSource`
+        is pure in its step counter, so ``(cfg, session_id, step)`` replays
+        the exact event stream, and a restored pool resumes bit for bit on
+        an engine of the same geometry. ``step`` defaults to ``n_steps``.
+        """
+        ckptr.save(self.n_steps if step is None else step, self.snapshot_tree(),
+                   blocking=blocking)
+
+    @classmethod
+    def restore(cls, cc: CompiledCnn, engine: EventEngine, cfg: AerServeConfig, ckptr,
+                step: int | None = None, source_factory=None) -> "AerSessionPool":
+        """Rebuild a pool from a :meth:`checkpoint` snapshot.
+
+        ``engine`` must have the checkpointed carry's geometry (same neuron
+        and cluster counts and delivery mode); resuming is then bit-exact.
+        ``step`` defaults to the latest complete checkpoint. Sessions whose
+        source was not a :class:`DvsStreamSource` need
+        ``source_factory(slot_meta) -> source``, else restore raises
+        ``TypeError``.
+        """
+        if step is None:
+            step = ckptr.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no complete checkpoint under {ckptr.dir}")
+        pool = cls(cc, engine, cfg)
+        like = {"carry": pool.carry, "session_meta": np.zeros(0, np.uint8)}
+        try:
+            tree = ckptr.restore(step, like)
+        except ValueError as e:
+            # the checkpointed carry does not fit this engine (a leaf's shape
+            # changed): refuse before any state is installed
+            raise CheckpointMismatchError(
+                f"checkpoint at step {step} does not fit the restoring "
+                f"engine's carry: {e}"
+            ) from e
+        pool.load_snapshot_tree(tree, source_factory=source_factory)
+        return pool
 
     # -- drain loop --------------------------------------------------------
     def admit_next(self, pending: deque) -> DvsSession | None:

@@ -100,17 +100,25 @@ def test_compile_errors_match_for_tag_and_cam_overflow():
 
 
 def test_later_slices_raise_not_implemented():
-    """What waits for the faults port (``repair_placement``) raises,
-    naming it; the compile refusals stay repro's."""
+    """``repair_placement`` (ported with faults and recovery) places this
+    small net around a dead tile as repro's does; the compile refusals stay
+    repro's."""
     from repro.core import compiler as jcomp
+    from repro.core import faults as jfaults
+    from repro.core.routing import Fabric as JFabric
     from repro_torch.core import compiler as tcomp
+    from repro_torch.core import faults as tfaults
     from repro_torch.core.routing import Fabric
 
     spec = ttags.NetworkSpec(n_neurons=8, cluster_size=4, k_tags=8)
     spec.connect(0, 5)
-    with pytest.raises(NotImplementedError, match="Faults and recovery"):
-        tcomp.repair_placement(ttags.compile_network(spec), Fabric(), faults=None)
-    assert hasattr(jcomp, "repair_placement")
+    jspec = jtags.NetworkSpec(n_neurons=8, cluster_size=4, k_tags=8)
+    jspec.connect(0, 5)
+    got = tcomp.repair_placement(ttags.compile_network(spec), Fabric(),
+                                 tfaults.FaultSpec(dead_tiles=(0,)))
+    want = jcomp.repair_placement(jtags.compile_network(jspec), JFabric(),
+                                  jfaults.FaultSpec(dead_tiles=(0,)))
+    assert got[0].tobytes() == want[0].tobytes() and got[1] == want[1]
     # a placement is compiled now; without a fabric it is refused, as in repro
     with pytest.raises(ValueError, match="requires a fabric"):
         ttags.compile_network(spec, tile_of_cluster=[0, 1])

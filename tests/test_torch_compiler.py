@@ -200,9 +200,17 @@ def test_traffic_matrix_slab_placement_and_session_rate_equal():
 
 
 def test_repair_placement_not_ported():
+    """Ported with faults and recovery: on a random spec, around a dead tile
+    and a lossy link, the placement and report are repro's."""
+    from repro.core import faults as jfaults
+    from repro_torch.core import faults as tfaults
+
     t = ttags.compile_network(_random_spec(ttags.NetworkSpec, 0))
-    with pytest.raises(NotImplementedError, match="Faults and recovery"):
-        tcomp.repair_placement(t, trouting.Fabric(), faults=None)
+    j = jtags.compile_network(_random_spec(jtags.NetworkSpec, 0))
+    kw = {"dead_tiles": (1,), "link_drop_rate": {(3, 4): 0.2}}
+    pt, rt = tcomp.repair_placement(t, trouting.Fabric(), tfaults.FaultSpec(**kw), seed=2)
+    pj, rj = jcomp.repair_placement(j, jrouting.Fabric(), jfaults.FaultSpec(**kw), seed=2)
+    assert pt.tobytes() == pj.tobytes() and rt == rj
 
 
 # ---------------------------------------------------------------------------

@@ -134,10 +134,24 @@ def test_validate_placement_errors_match_repro(tiles, n_clusters, match):
 
 
 def test_faults_are_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Faults and recovery"):
-        trouting.build_delivery_model(trouting.Fabric(), 4, DT, faults=object())
-    with pytest.raises(NotImplementedError, match="Faults and recovery"):
-        tdispatch.FabricBackend(faults=object())
+    """Faults are ported now (tests/test_torch_faults.py): the delivery
+    model carries repro's fault matrices, and the backend checks the spec
+    against its fabric as repro's does."""
+    from repro.core import dispatch as jdispatch
+    from repro.core import faults as jfaults
+    from repro_torch.core import faults as tfaults
+
+    kw = {"dead_links": ((0, 1),), "link_drop_rate": 0.1, "seed": 1}
+    jm = jrouting.build_delivery_model(jrouting.Fabric(), 4, DT, faults=jfaults.FaultSpec(**kw))
+    tm = trouting.build_delivery_model(trouting.Fabric(), 4, DT, faults=tfaults.FaultSpec(**kw))
+    assert tm.pair_alive.tobytes() == jm.pair_alive.tobytes()
+    assert tm.pair_drop_rate.tobytes() == jm.pair_drop_rate.tobytes()
+    bad = {"dead_links": ((0, 4),)}
+    with pytest.raises(ValueError) as want:
+        jdispatch.FabricBackend(faults=jfaults.FaultSpec(**bad))
+    with pytest.raises(ValueError, match="not a directed adjacent mesh link") as got:
+        tdispatch.FabricBackend(faults=tfaults.FaultSpec(**bad))
+    assert str(got.value) == str(want.value)
 
 
 def _spec_pair(seed, n=48, cluster=8, k=32, edges=80):

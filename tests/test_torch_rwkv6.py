@@ -305,13 +305,17 @@ def test_temperature_sampling_is_seeded_and_stays_in_the_vocabulary():
     assert not torch.equal(a, greedy)
 
 
-def test_serve_cli_runs_the_smoke_model_on_the_cpu(capsys):
+def test_serve_cli_runs_the_smoke_model_on_the_cpu(capsys, tmp_path):
     out = serve_cli.main(["--arch", "rwkv6-3b", "--smoke", "--device", "cpu", "--batch", "2",
                           "--prompt-len", "11", "--max-new", "5"])
     assert out.shape == (2, 5) and out.device.type == "cpu"
     assert "generated (2, 5) on cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Faults and recovery"):
-        serve_cli.main(["--smoke", "--device", "cpu", "--ckpt-dir", "ckpt"])
+    # --ckpt-dir is ported (tests/test_torch_checkpoint.py): saved, then loaded
+    ckpt = ["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "11",
+            "--max-new", "5", "--ckpt-dir", str(tmp_path / "ckpt")]
+    assert torch.equal(serve_cli.main(ckpt), out)
+    assert torch.equal(serve_cli.main(ckpt), out)
+    assert "loaded checkpoint step 0" in capsys.readouterr().out
     with pytest.raises(NotImplementedError, match="LM remainder"):
         serve_cli.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu"])
 
