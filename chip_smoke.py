@@ -71,6 +71,27 @@ Phases, each of which fails the run on any error:
      restored and resumed on fused and on the fabric, bit-exact against
      the uninterrupted run (save and restore timed); 64 CAM and 64 SRAM bit
      flips served on cuda and fused, equal to the reference leg;
+  3d. multi-model residency, on the serving phase's readout and sessions,
+     each serving part with the launch counts set to 0 just before it and
+     read just after, every count against the JAX package's CPU counts
+     pinned at the top of the phase (tests/multimodel_phase_reference.py):
+     a 32-slot pool with two resident Table-V networks (3072 neurons in 12
+     clusters) serving the 64 sessions alternating between them, on fused,
+     cuda and reference (each session equal to its backend's single-model
+     leg) and over the fabric ring with the entry table built slab by slab
+     (kernel and plain legs equal; again at link capacity 8); the hot load
+     of the second model under 32 live sessions and the unload of the first
+     on fused and on the fabric (load_model timed, the first step after it
+     on CUDA events, device memory back within 1 MB); the live versioned
+     re-placement (ReplacementController, the sessions in flight byte-equal
+     to an unswapped control, retarget and drain); a checkpoint of the
+     two-model pool at step 5 restored (restore(models=)) and resumed
+     bit-exactly on fused and on the fabric, the models' other order
+     refused; and the three stage-2 kernels against their plain versions
+     on the two residents' combined tables and on Table-V beside a network
+     of K = 512, S = 32, E = 8 (padded -1 words, zero tag columns), at 0%,
+     10% and 100% activity, with their device time, split and blocks per
+     SM at those shapes;
   4. LM serving: rwkv6-3b at full width and depth (32 layers, bfloat16
      weights initialised on the card from seed 7) serves 8 prompts of 512
      tokens with 32 new greedy tokens through ``Engine.generate``, which must
@@ -89,7 +110,9 @@ Phases, each of which fails the run on any error:
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` from the serving
 and LM paths, ``launches_compiler_phase`` from phase 3b,
-``launches_faults_phase`` from phase 3c), then as the last line
+``launches_faults_phase`` from phase 3c, ``launches_multimodel_phase`` from
+phase 3d, ``device_ms_two_table_v`` / ``device_ms_table_v_plus_k512`` from
+its part 6), then as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (the plain stage 2
 contracts a one-hot with a float32 matmul). Run from the repository root:
 
@@ -100,6 +123,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -136,7 +160,7 @@ from repro_torch.core.event_engine import (  # noqa: E402
 from repro_torch.core.faults import FaultSpec, apply_table_faults, fault_blast_radius  # noqa: E402
 from repro_torch.core.neuron import neuron_step  # noqa: E402
 from repro_torch.core.routing import ChipConstants, Fabric  # noqa: E402
-from repro_torch.core.tags import NetworkSpec, compile_network  # noqa: E402
+from repro_torch.core.tags import NetworkSpec, compile_network, concat_tables  # noqa: E402
 from repro_torch.core.two_stage import (  # noqa: E402
     compact_events,
     stage2_cam_match,
@@ -154,12 +178,14 @@ from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serve.aer import (  # noqa: E402
     AerServeConfig,
     AerSessionPool,
+    CheckpointMismatchError,
     DvsSession,
     build_poker_engine,
     tune_poker_readout,
 )
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.serve.health import (  # noqa: E402
+    ReplacementController,
     Watchdog,
     WatchdogConfig,
     migrate_pool,
@@ -745,6 +771,14 @@ def _sessions(suits, seed: int = SEED) -> list[DvsSession]:
     ]
 
 
+def _key(results) -> list:
+    """Each session's result, by session id: (id, prediction, decided,
+    decision step, counts, drops, link drops, error)."""
+    return [(r.session_id, r.prediction, r.decided, r.latency_steps, r.counts.tolist(),
+             r.dropped, r.link_dropped, r.error)
+            for r in sorted(results, key=lambda r: r.session_id)]
+
+
 KERNEL_WRAPPERS = {
     "cam_match": cam_ops.cam_match,
     "fused_deliver": fused_ops.fused_deliver,
@@ -800,14 +834,15 @@ def check_dense_oracle(dev: torch.device) -> None:
     log("dense oracle: cuda and fused backends equal it over 10 steps of a 96-neuron network")
 
 
-def profile_serving(pool: AerSessionPool, suits) -> dict:
+def profile_serving(pool: AerSessionPool, suits, sessions=None) -> dict:
     """Where a loaded pool's step goes: 20 steps timed part by part on the
     host clock (input building, engine launch, wait for the device, readout
     bookkeeping), then 20 steps under torch.profiler for the device-busy
-    time by kernel."""
+    time by kernel. The pool is filled from ``sessions`` (default: the
+    serving phase's)."""
     from torch.profiler import ProfilerActivity, profile
 
-    for sess in _sessions(suits)[:POOL]:
+    for sess in (sessions or _sessions(suits))[:POOL]:
         pool.admit(sess)
     for _ in range(3):
         pool.step()
@@ -882,8 +917,7 @@ def _serve_leg(cc, dev, backend, fabric_options, suits, expect_kernel, pool_size
     by_id = sorted(results, key=lambda r: r.session_id)
     lat = np.array([r.latency_steps for r in by_id], dtype=np.float64)
     return {
-        "results": [(r.session_id, r.prediction, r.decided, r.latency_steps,
-                     r.counts.tolist(), r.dropped, r.link_dropped, r.error) for r in by_id],
+        "results": _key(results),
         "accuracy": float(np.mean([r.correct for r in by_id])),
         "latency_p50_steps": float(np.percentile(lat, 50)),
         "latency_p99_steps": float(np.percentile(lat, 99)),
@@ -953,7 +987,7 @@ def phase_serving(dev: torch.device) -> dict[str, int]:
         json.dumps({"serving": summary, "profile": prof}, indent=1)
     )
     v1 = {"cc": cc, "fc_select": fc_select, "suits": suits,
-          "results": {k: runs[k]["results"] for k in ("fused", "cuda", "fabric")}}
+          "results": {k: runs[k]["results"] for k in ("fused", "cuda", "reference", "fabric")}}
     return launches, v1
 
 
@@ -1580,9 +1614,7 @@ def check_kill_restore(dev, v1, launched) -> dict:
             lambda: _serve_killed(cc, make_engine, suits, OUT_DIR / "ckpt" / label))
         _expect_launches(counts, {kernel: timing["engine_steps"]}, f"kill-restore {label}")
         launched.update(counts)
-        got = [(r.session_id, r.prediction, r.decided, r.latency_steps, r.counts.tolist(),
-                r.dropped, r.link_dropped, r.error)
-               for r in sorted(results, key=lambda r: r.session_id)]
+        got = _key(results)
         if got != v1["results"][label]:
             raise AssertionError(f"kill-restore on {label}: sessions differ from the "
                                  "uninterrupted run")
@@ -1694,6 +1726,562 @@ def phase_faults(dev, v1) -> dict[str, int]:
     (OUT_DIR / "chip_smoke_faults.json").write_text(json.dumps(out, indent=1, default=str))
     log(f"faults phase: launches {dict(launched)}")
     return dict(launched)
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: multi-model residency
+# ---------------------------------------------------------------------------
+# What the JAX package gives for this phase's workloads on the CPU (printed
+# by tests/multimodel_phase_reference.py; the port must reproduce them on
+# the card), on the serving phase's Hebbian readout and suits: two resident
+# Table-V networks "a" and "b" (3072 neurons in 12 clusters of 256, K =
+# 1024) in a pool of 32 slots, 64 sessions of seed 7 with 16 events per step
+# alternating between "a" and "b" by index, the default 3x3 fabric. Sums
+# are over the sessions: accuracy, link drops, decision steps; and the
+# pool's engine steps.
+MM_TWO_MODEL = {
+    "reference": {"sessions": 64, "accuracy": 1.0, "link_dropped": 0, "latency_steps": 1196,
+                  "engine_steps": 41},
+    "fabric": {"sessions": 64, "accuracy": 1.0, "link_dropped": 0, "latency_steps": 1236,
+               "engine_steps": 42},
+}
+MM_FABRIC_CAP8 = {"sessions": 32, "accuracy": 1.0, "link_dropped": 847, "latency_steps": 665,
+                  "engine_steps": 25}
+MM_HOT_LOAD = {  # fabric: "a" alone, "b" loaded after LOAD_AT steps, then "a" unloaded
+    "a": {"sessions": 32, "accuracy": 1.0, "link_dropped": 0, "latency_steps": 631},
+    "b": {"sessions": 32, "accuracy": 1.0, "link_dropped": 0, "latency_steps": 605},
+    "engine_steps": 42,
+    "survivor": {"sessions": 32, "accuracy": 1.0, "link_dropped": 0, "latency_steps": 646},
+}
+MM_REPLACEMENT = {"name": "poker@r1", "placement": [5, 2, 5, 5, 5, 6],
+                  "cost_observed_old": 195.5, "cost_observed_new": 22.6,
+                  "mid_flight_equal_to_control": True, "drained_at_step": 21,
+                  "models": ["poker@r1"], "sessions": 64, "accuracy": 1.0, "link_dropped": 0,
+                  "latency_steps": 1266, "engine_steps": 43}
+LOAD_AT = 4
+REPLACE_AT, AFTER_SWAP = 10, 6
+MM_KILL_AT = 5
+MM_MODELS = ("a", "b")
+MULTIMODEL_PATH_KERNELS = ("cam_match", "fused_deliver", "fabric_deliver")
+MM_MEMORY_SLACK = 1 << 20  # bytes: device memory after a load and an unload against before
+# the second, heterogeneous resident of part 6: 6 clusters of 256 at a smaller
+# K, S and E, random groups (1-6 sources, 4 targets in one cluster) from a seed
+HETERO = {"n_neurons": 1536, "cluster_size": 256, "k_tags": 512, "max_cam_words": 32,
+          "max_sram_entries": 8}
+HETERO_GROUPS = 600
+
+
+def _mixed(suits, n=None) -> list[DvsSession]:
+    """The serving phase's sessions, on models "a" and "b" by even and odd index."""
+    out = _sessions(suits)[:n]
+    for i, s in enumerate(out):
+        s.model = MM_MODELS[i % 2]
+    return out
+
+
+def _mm_summary(results, pool=None) -> dict:
+    out = {"sessions": len(results),
+           "accuracy": float(np.mean([r.correct for r in results])),
+           "link_dropped": int(sum(r.link_dropped for r in results)),
+           "latency_steps": int(sum(r.latency_steps for r in results))}
+    if pool is not None:
+        out["engine_steps"] = pool.n_steps
+    return out
+
+
+def _pinned(got: dict, want: dict, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: {got}, the JAX package's {want}")
+
+
+def _mm_pool(cc, dev, backend, models=MM_MODELS, fabric_options=None, pool_size=POOL):
+    return AerSessionPool.from_models({m: cc for m in models}, AerServeConfig(pool_size=pool_size),
+                                      backend=backend, device=dev, fabric_options=fabric_options)
+
+
+def _mm_serve(cc, dev, backend, sessions, fabric_options=None):
+    """A two-model pool serving ``sessions``; its launches counted over the serve."""
+    pool = _mm_pool(cc, dev, backend, fabric_options=fabric_options)
+    results, counts = _counted(lambda: pool.serve(sessions))
+    return pool, results, counts
+
+
+def check_two_model_queued(dev, v1, launched) -> dict:
+    """Part 1: the two-model pool on ``fused``, ``cuda`` and ``reference``.
+    Every session equals the serving phase's single-model leg of its
+    backend (prediction, decided, decision step, counts, drops), the counts
+    are the JAX package's, and each kernel runs once per engine step."""
+    cc, suits = v1["cc"], v1["suits"]
+    out = {}
+    for backend, kernel in (("fused", "fused_deliver"), ("cuda", "cam_match"),
+                            ("reference", None)):
+        t0 = time.perf_counter()
+        pool, results, counts = _mm_serve(cc, dev, backend, _mixed(suits))
+        wall = time.perf_counter() - t0
+        if (pool.engine.n_clusters, pool.engine.n_neurons) != (12, 3072):
+            raise AssertionError(f"two-model engine: {pool.engine.n_clusters} clusters, "
+                                 f"{pool.engine.n_neurons} neurons")
+        _expect_launches(counts, {kernel: pool.n_steps} if kernel else {},
+                         f"two-model pool on {backend}")
+        launched.update(counts)
+        if _key(results) != v1["results"][backend]:
+            raise AssertionError(f"two-model pool on {backend}: sessions differ from the "
+                                 "single-model leg")
+        got = _mm_summary(results, pool)
+        _pinned(got, MM_TWO_MODEL["reference"], f"two-model pool on {backend}")
+        out[backend] = {**got, "wall_ms_per_step": wall * 1e3 / pool.n_steps, "launches": counts,
+                        "results": _key(results)}
+        log(f"multimodel[two-model {backend}]: 64 sessions on 12 clusters equal the single-model "
+            f"leg, accuracy {got['accuracy']}, {got['engine_steps']} steps "
+            f"({out[backend]['wall_ms_per_step']:.3f} ms/step wall), launches {counts}")
+        if kernel is not None:
+            p = out[backend]["profile"] = profile_serving(_mm_pool(cc, dev, backend), suits,
+                                                          _mixed(suits))
+            host = ", ".join(f"{k} {v:.3f}" for k, v in p["host_ms_per_step"].items())
+            log(f"multimodel[profile {backend}]: {p['wall_ms_per_step']:.3f} ms/step wall "
+                f"({host} ms); device busy {p['device_busy_ms_per_step']:.3f} ms/step over "
+                f"{p['device_ops_per_step']:.1f} device ops, idle share "
+                f"{p['device_idle_share']}")
+    return out
+
+
+def check_two_model_fabric(dev, v1, launched) -> dict:
+    """Part 2: the two-model pool over the fabric, ring path, the entry table
+    built slab by slab (equal, ranges included, to the build from the
+    concatenated tables). The kernel leg equals the ``kernel=False`` leg
+    session for session, both give the JAX package's counts; and again at
+    link capacity 8 on 32 sessions, where both models' entries contend for
+    the same link FIFOs."""
+    cc, suits = v1["cc"], v1["suits"]
+    out = {}
+    for label, sessions, extra, want in (("fabric", _mixed(suits), {}, MM_TWO_MODEL["fabric"]),
+                                         ("fabric_cap8", _mixed(suits, POOL),
+                                          {"link_capacity": 8}, MM_FABRIC_CAP8)):
+        legs = {}
+        for kernel in (True, False):
+            t0 = time.perf_counter()
+            pool, results, counts = _mm_serve(cc, dev, "fabric", sessions if kernel
+                                              else _mixed(suits, len(sessions)),
+                                              {**extra, "kernel": kernel})
+            wall = time.perf_counter() - t0
+            _expect_launches(counts, {"fabric_deliver": pool.n_steps} if kernel else {},
+                             f"two-model {label}, kernel={kernel}")
+            launched.update(counts)
+            legs[kernel] = (pool, results, wall, counts)
+        pool, results, wall, counts = legs[True]
+        if _key(results) != _key(legs[False][1]):
+            raise AssertionError(f"two-model {label}: kernel and plain legs differ")
+        got = _mm_summary(results, pool)
+        _pinned(got, want, f"two-model {label}")
+        entries = pool.engine._fabric_entries
+        if label == "fabric":
+            if entries.dstk.numel() != 2 * 1280:
+                raise AssertionError(f"two-model entry table holds {entries.dstk.numel()} entries")
+            tables = pool.registry.combined()[0]
+            direct = pool.engine.fabric_backend.build_entries(
+                tables.src_tag, tables.src_dest, tables.cluster_size, tables.k_tags, device=dev)
+            for f in dataclasses.fields(direct):
+                if not torch.equal(getattr(entries, f.name), getattr(direct, f.name)):
+                    raise AssertionError(f"slab-built entry column {f.name} differs from the "
+                                         "build from the concatenated tables")
+        out[label] = {**got, "wall_ms_per_step": wall * 1e3 / pool.n_steps,
+                      "entries": int(entries.dstk.numel()),
+                      "ring_slots": pool.engine.fabric_model.max_delay + 1, "launches": counts,
+                      "results": _key(results)}
+        log(f"multimodel[two-model {label}]: {len(results)} sessions, kernel and plain legs "
+            f"equal, the JAX package's counts ({got['link_dropped']} link drops, "
+            f"{got['engine_steps']} steps, {out[label]['wall_ms_per_step']:.3f} ms/step wall); "
+            f"{out[label]['entries']} slab-built entries, ring of {out[label]['ring_slots']}")
+    return out
+
+
+def _hot_load(cc, dev, backend, suits) -> dict:
+    """Part 3 on one backend: "a" with its 32 sessions, ``load_model("b")``
+    after LOAD_AT steps (host clock; the first step after it on CUDA
+    events), b's sessions admitted as slots free, the pool drained, then
+    ``unload_model("a")`` (device memory read before the load and after the
+    unload) and the first 32 sessions served on "b"."""
+    pool = _mm_pool(cc, dev, backend, models=("a",))
+    traffic = _mixed(suits)
+    pending = collections.deque([s for s in traffic if s.model == "a"]
+                                + [s for s in traffic if s.model == "b"])
+    results, timing = [], {}
+    while pending or pool.occupied:
+        first = False
+        if pool.n_steps == LOAD_AT and "b" not in pool.models:
+            gc.collect()
+            torch.cuda.synchronize()
+            timing["memory_before_load"] = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            pool.load_model("b", cc)
+            torch.cuda.synchronize()
+            timing["load_model_ms"] = (time.perf_counter() - t0) * 1e3
+            timing["memory_after_load"] = torch.cuda.memory_allocated()
+            timing["sessions_moved"] = len(pool.occupied)
+            first = True
+        while pending and pool.free_slots and pending[0].model in pool.models:
+            pool.admit(pending.popleft())
+        if first:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            pool.step()
+            end.record()
+            end.synchronize()
+            timing["first_step_ms"] = start.elapsed_time(end)
+        else:
+            pool.step()
+        done = pool.finished_slots()
+        if done:
+            results.extend(pool.evict_many(done))
+    steps = pool.n_steps
+    t0 = time.perf_counter()
+    pool.unload_model("a")
+    torch.cuda.synchronize()
+    timing["unload_model_ms"] = (time.perf_counter() - t0) * 1e3
+    gc.collect()
+    torch.cuda.synchronize()
+    timing["memory_after_unload"] = torch.cuda.memory_allocated()
+    survivors = _sessions(suits)[:POOL]
+    for s in survivors:
+        s.model = "b"
+    survived = pool.serve(survivors)
+    return {"results": results, "survivors": survived, "engine_steps": steps,
+            "total_steps": pool.n_steps, "models": list(pool.models), **timing}
+
+
+def check_hot_load(dev, v1, launched) -> dict:
+    """Part 3: the hot load under live sessions on ``fused`` and on the
+    fabric. On ``fused`` every session equals the serving phase's fused leg
+    (as an undisturbed run); on the fabric the counts are the JAX
+    package's. The survivor serves after the unload, and device memory after
+    the load and the unload is back within 1 MB of its level before."""
+    cc, suits = v1["cc"], v1["suits"]
+    out = {}
+    for backend, kernel in (("fused", "fused_deliver"), ("fabric", "fabric_deliver")):
+        r, counts = _counted(lambda: _hot_load(cc, dev, backend, suits))
+        _expect_launches(counts, {kernel: r["total_steps"]}, f"hot load on {backend}")
+        launched.update(counts)
+        if r["models"] != ["b"]:
+            raise AssertionError(f"hot load on {backend}: resident {r['models']} after unload")
+        if backend == "fused":
+            if _key(r["results"]) != v1["results"]["fused"]:
+                raise AssertionError("hot load on fused: sessions differ from an undisturbed run")
+            if _key(r["survivors"]) != v1["results"]["fused"][:POOL]:
+                raise AssertionError("hot load on fused: the survivor's sessions differ")
+        else:
+            got = {m: _mm_summary([x for x in r["results"] if x.session_id % 2 == (m == "b")])
+                   for m in "ab"}
+            got.update(engine_steps=r["engine_steps"], survivor=_mm_summary(r["survivors"]))
+            _pinned(got, MM_HOT_LOAD, "hot load on the fabric")
+        drift = r["memory_after_unload"] - r["memory_before_load"]
+        if abs(drift) > MM_MEMORY_SLACK:
+            raise AssertionError(f"hot load on {backend}: device memory {r['memory_before_load']} "
+                                 f"bytes before the load, {r['memory_after_unload']} after the "
+                                 "unload")
+        out[backend] = {k: v for k, v in r.items() if k not in ("results", "survivors")}
+        out[backend].update(memory_drift_bytes=drift, launches=counts)
+        log(f"multimodel[hot load {backend}]: load_model ({r['sessions_moved']} live sessions "
+            f"moved) {r['load_model_ms']:.3f} ms, first step after it {r['first_step_ms']:.3f} ms "
+            f"(CUDA events), unload {r['unload_model_ms']:.3f} ms; device memory "
+            f"{r['memory_before_load']} -> {r['memory_after_load']} (loaded) -> "
+            f"{r['memory_after_unload']} bytes (unloaded), {drift:+d}; "
+            f"{len(r['results'])} sessions and {len(r['survivors'])} after the unload "
+            f"{'equal the single-model leg' if backend == 'fused' else 'give the JAX counts'}, "
+            f"launches {counts}")
+    return out
+
+
+def _replacement(cc, dev, suits) -> tuple[dict, dict]:
+    """Part 4's run: two 32-slot fabric pools with per-link stats on the
+    first 32 sessions, stepped REPLACE_AT times; the forced versioned swap on
+    the first; AFTER_SWAP more steps of both; then the next 32 sessions
+    retargeted onto the new version and the old one drained."""
+    pools = [_mm_pool(cc, dev, "fabric", models=("poker",),
+                      fabric_options={"per_link_stats": True}) for _ in range(2)]
+    for pool in pools:
+        for s in _sessions(suits)[:POOL]:
+            pool.admit(s)
+    pool, control = pools
+    for _ in range(REPLACE_AT):
+        pool.step()
+        control.step()
+    ctl = ReplacementController(pool)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = ctl.maybe_replace(force=True)
+    torch.cuda.synchronize()
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(AFTER_SWAP):
+        pool.step()
+        control.step()
+    equal = all(a.step == b.step and np.array_equal(a.counts, b.counts) and a.dropped == b.dropped
+                and a.link_dropped == b.link_dropped for a, b in zip(pool.slots, control.slots))
+    pending = collections.deque(ctl.retarget(s) for s in _sessions(suits)[POOL:])
+    results, drained_at = [], None
+    while pending or pool.occupied:
+        done = pool.finished_slots()
+        if done:
+            results.extend(pool.evict_many(done))
+        if ctl.retired and ctl.drain_retired():
+            drained_at = pool.n_steps
+        while pending and pool.free_slots:
+            pool.admit(pending.popleft())
+        if pool.occupied:
+            pool.step()
+    if ctl.retired and ctl.drain_retired():
+        drained_at = pool.n_steps
+    got = {"name": report["name"], "placement": np.asarray(report["placement"]).tolist(),
+           "cost_observed_old": report["cost_observed_old"],
+           "cost_observed_new": report["cost_observed_new"],
+           "mid_flight_equal_to_control": bool(equal), "drained_at_step": drained_at,
+           "models": list(pool.models), **_mm_summary(results, pool)}
+    return got, {"swap_ms": swap_ms, "control_steps": control.n_steps}
+
+
+def check_replacement(dev, v1, launched) -> dict:
+    """Part 4: live versioned re-placement. ``maybe_replace(force=True)``
+    after 10 steps gives the JAX package's ``poker@r1`` placement and
+    observed costs; the sessions in flight stay byte-equal to an unswapped
+    control for the next 6 steps; ``retarget`` and ``drain_retired`` retire
+    the old version."""
+    (got, extra), counts = _counted(lambda: _replacement(v1["cc"], dev, v1["suits"]))
+    _expect_launches(counts, {"fabric_deliver": got["engine_steps"] + extra["control_steps"]},
+                     "live re-placement")
+    launched.update(counts)
+    _pinned(got, MM_REPLACEMENT, "live re-placement")
+    log(f"multimodel[re-placement]: {got['name']} on {got['placement']} (observed cost "
+        f"{got['cost_observed_old']} -> {got['cost_observed_new']}), swap "
+        f"{extra['swap_ms']:.3f} ms; sessions in flight byte-equal to the control for "
+        f"{AFTER_SWAP} steps; old version drained at step {got['drained_at_step']}; "
+        f"{got['sessions']} sessions, accuracy {got['accuracy']}, the JAX package's counts; "
+        f"launches {counts}")
+    return {**got, **extra, "launches": counts}
+
+
+def _serve_killed_mm(cc, dev, backend, suits, ckpt_dir: Path) -> tuple[list, dict]:
+    """Part 5's run: the two-model pool serving the 64 mixed sessions; at
+    engine step MM_KILL_AT checkpoint, drop the pool and its engine, build a
+    new engine and ``restore(models=)``, then serve on."""
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ck = Checkpointer(str(ckpt_dir))
+    cfg = AerServeConfig(pool_size=POOL)
+    models = {m: cc for m in MM_MODELS}
+    pool = _mm_pool(cc, dev, backend)
+    pending = collections.deque(_mixed(suits))
+    results, timing = [], {}
+    while pending or pool.occupied:
+        while pending and pool.free_slots:
+            pool.admit(pending.popleft())
+        pool.step()
+        if pool.n_steps == MM_KILL_AT and not timing:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pool.checkpoint(ck, blocking=True)
+            t1 = time.perf_counter()
+            del pool
+            engine = _mm_pool(cc, dev, backend).engine
+            swapped = _mm_pool(cc, dev, backend, models=MM_MODELS[::-1]).engine
+            try:
+                AerSessionPool.restore(cc, swapped, cfg, ck, models={m: cc for m in MM_MODELS[::-1]})
+            except CheckpointMismatchError:
+                pass
+            else:
+                raise AssertionError("a restore into the models' other order did not raise")
+            del swapped
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            pool = AerSessionPool.restore(cc, engine, cfg, ck, models=models)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            timing = {"save_ms": (t1 - t0) * 1e3, "restore_ms": (t3 - t2) * 1e3,
+                      "checkpoint_bytes": sum(p.stat().st_size
+                                              for p in (ckpt_dir / f"step_{MM_KILL_AT}").iterdir())}
+            if pool.n_steps != MM_KILL_AT or len(pool.occupied) != POOL:
+                raise AssertionError("restored two-model pool lost its step count or sessions")
+        finished = pool.finished_slots()
+        if finished:
+            results.extend(pool.evict_many(finished))
+    timing["engine_steps"] = pool.n_steps
+    return results, timing
+
+
+def check_mm_kill_restore(dev, v1, launched, uninterrupted) -> dict:
+    """Part 5: a checkpoint of the two-model pool at step 5 on ``fused`` and
+    on the fabric; pool and engine dropped, ``restore(models=)`` onto a new
+    engine, the resumed run bit-exact against the uninterrupted one (parts 1
+    and 2); a restore into a pool with the models in the other order raises
+    ``CheckpointMismatchError``."""
+    out = {}
+    for backend, kernel in (("fused", "fused_deliver"), ("fabric", "fabric_deliver")):
+        (results, timing), counts = _counted(lambda: _serve_killed_mm(
+            v1["cc"], dev, backend, v1["suits"], OUT_DIR / "ckpt_multimodel" / backend))
+        _expect_launches(counts, {kernel: timing["engine_steps"]}, f"two-model kill-restore {backend}")
+        launched.update(counts)
+        if _key(results) != uninterrupted[backend]:
+            raise AssertionError(f"two-model kill-restore on {backend}: sessions differ from the "
+                                 "uninterrupted run")
+        out[backend] = {**timing, "launches": counts}
+        log(f"multimodel[kill-restore {backend}]: checkpoint at step {MM_KILL_AT} "
+            f"({timing['checkpoint_bytes']} bytes) in {timing['save_ms']:.3f} ms, restore "
+            f"{timing['restore_ms']:.3f} ms; 64 sessions equal the uninterrupted two-model run; "
+            f"the models' other order refused")
+    return out
+
+
+def hetero_tables(seed: int = SEED):
+    """Part 6's second resident: 6 clusters of 256 at K = 512, S = 32, E = 8,
+    random groups of 1-6 sources onto 4 targets in one cluster."""
+    rng = np.random.default_rng(seed)
+    spec = NetworkSpec(**HETERO)
+    n, cs = HETERO["n_neurons"], HETERO["cluster_size"]
+    for _ in range(HETERO_GROUPS):
+        srcs = rng.choice(n, size=int(rng.integers(1, 7)), replace=False)
+        c = int(rng.integers(n // cs))
+        dsts = c * cs + rng.choice(cs, size=4, replace=False)
+        spec.connect_group(srcs.tolist(), [(int(d), int(rng.integers(4))) for d in dsts],
+                           shared_tag=False)
+    return compile_network(spec)
+
+
+def _slab_mask(slabs, nc: int, k: int, dev) -> torch.Tensor:
+    """[nc, K] 1 where a resident compiled the tag, 0 on the padded columns."""
+    mask = torch.zeros((nc, k), device=dev)
+    for s in slabs:
+        mask[s.cluster_lo:s.cluster_hi, :s.k_tags] = 1.0
+    return mask
+
+
+def _hold(what, got, want, integer) -> float:
+    if integer and not torch.equal(got, want):
+        raise AssertionError(f"{what}: not bit-exact on integer inputs, max err "
+                             f"{(got - want).abs().max()}")
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    return float((got - want).abs().max())
+
+
+def _draw(gen, shape, integer: bool, dev, high: int = 3, scale: float = 8.0) -> torch.Tensor:
+    """Integer-valued (multiples of ``scale`` below ``high * scale``) or random-float values."""
+    if integer:
+        return torch.randint(0, high, shape, generator=gen, device=dev).float() * scale
+    return torch.rand(shape, generator=gen, device=dev)
+
+
+def _kernels_at(dev, parts, gen, label) -> dict:
+    """The three stage-2 kernels on the residents' combined table at B = 32
+    and 0%, 10% and 100% activity, each against its plain version on
+    integer and on random-float inputs, padded tag columns at zero; the
+    fabric entry table built slab by slab, equal to the concatenated
+    build; the device time at 10%, the split and the blocks per SM at this
+    shape."""
+    tables, slabs = concat_tables(parts)
+    nc, k, cs, n = tables.n_clusters, tables.k_tags, tables.cluster_size, tables.n_neurons
+    src_tag, src_dest, cam_tag, cam_syn = (torch.as_tensor(getattr(tables, f), device=dev)
+                                           for f in ("src_tag", "src_dest", "cam_tag", "cam_syn"))
+    tabs = (src_tag, src_dest, cam_tag, cam_syn)
+    mask = _slab_mask(slabs, nc, k, dev)
+    be = FabricBackend()
+    entries = be.build_entries_slabs([(p.src_tag, p.src_dest) for p in parts], cs, k,
+                                     device=dev)
+    direct = be.build_entries(tables.src_tag, tables.src_dest, cs, k, device=dev)
+    for f in dataclasses.fields(direct):
+        if not torch.equal(getattr(entries, f.name), getattr(direct, f.name)):
+            raise AssertionError(f"{label}: slab-built entry column {f.name} differs")
+    m, d1 = entries.dstk.shape[0], be.model_for(nc).max_delay + 1
+    ranges = {"cluster_start": entries.cluster_start, "cluster_order": entries.cluster_order}
+    errs = collections.defaultdict(list)
+    timed = {}
+    for share in (0.1, 0.0, 1.0):
+        for integer in (True, False):
+            live = (torch.rand((POOL, nc, k), generator=gen, device=dev) < share) * mask
+            act = live * _draw(gen, (POOL, nc, k), integer, dev, high=17)
+            errs["cam_match"].append(_hold(f"{label} cam_match at {share:.0%}",
+                                           cam_ops.cam_match(act, cam_tag, cam_syn, cs),
+                                           cam_ops.cam_match_ref(act, cam_tag, cam_syn, cs),
+                                           integer))
+            active = torch.rand((POOL, n), generator=gen, device=dev) < share
+            spikes = active.float() if integer else \
+                active * torch.rand((POOL, n), generator=gen, device=dev)
+            q = compact_events(spikes, n)
+            ext = _draw(gen, (POOL, nc, k), integer, dev) * mask
+            errs["fused_deliver"].append(_hold(
+                f"{label} fused_deliver at {share:.0%}",
+                fused_ops.fused_deliver(q, *tabs, cs, k, external_activity=ext),
+                fused_ops.fused_deliver_ref(q, *tabs, cs, k, external_activity=ext), integer))
+            carries = (torch.rand((POOL, m), generator=gen, device=dev) < share).float()
+            w = carries if integer else carries * torch.rand((POOL, m), generator=gen, device=dev)
+            ring = _draw(gen, (POOL, d1, nc, k), integer, dev, scale=1.0) * mask
+            for cursor in range(d1):
+                cur = torch.tensor(cursor, dtype=torch.int32, device=dev)
+                args = (entries.dstk, entries.delay, w, ring, cur, ext, cam_tag, cam_syn, cs, k)
+                drive, new_ring = fabric_ops.fabric_deliver(*args, **ranges)
+                p_drive, p_ring = fabric_ops.fabric_deliver_ref(*args)
+                what = f"{label} fabric_deliver at {share:.0%}, cursor {cursor}"
+                errs["fabric_deliver"].append(max(_hold(what, drive, p_drive, integer),
+                                                  _hold(what, new_ring, p_ring, integer)))
+            if share == 0.1 and not integer:
+                timed = {"cam_match": lambda a=act: cam_ops.cam_match(a, cam_tag, cam_syn, cs),
+                         "fused_deliver": lambda q=q, e=ext: fused_ops.fused_deliver(
+                             q, *tabs, cs, k, external_activity=e),
+                         "fabric_deliver": lambda a=args: fabric_ops.fabric_deliver(*a, **ranges)}
+    splits = {"cam_match": cam_ops.work_split(POOL, cs, k),
+              "fused_deliver": fused_ops.work_split(POOL, n, cs, k),
+              "fabric_deliver": fabric_ops.work_split(POOL, cs, k, d1)}
+    infos = {"cam_match": cam_ops.kernel_info(splits["cam_match"], k),
+             "fused_deliver": fused_ops.kernel_info(splits["fused_deliver"], k),
+             "fabric_deliver": fabric_ops.kernel_info(splits["fabric_deliver"], k, d1)}
+    out = {"clusters": nc, "neurons": n, "k_tags": k, "cam_words": int(cam_tag.shape[1]),
+           "sram_entries": int(src_tag.shape[1]), "fabric_entries": m, "ring_slots": d1}
+    for name, fn in timed.items():
+        out[name] = {"max_abs_err": max(errs[name]),
+                     "device_ms": device_ms(fn, f"{name}_kernel"), "ms": time_ms(fn),
+                     "split": str(splits[name]),
+                     "registers": infos[name]["registers"],
+                     "blocks_per_sm": infos[name]["blocks_per_sm"]}
+    log(f"multimodel[kernels, {label}]: {nc} clusters, K {k}, S {out['cam_words']}, E "
+        f"{out['sram_entries']}, {m} entries; all three kernels equal their plain versions at "
+        "0/10/100% activity (bit-exact on integer inputs); at 10%: " + "; ".join(
+            f"{name} device {out[name]['device_ms']} ms, split {out[name]['split']}, "
+            f"{out[name]['blocks_per_sm']} blocks/SM" for name in timed))
+    return out
+
+
+def check_hetero_kernels(dev, v1) -> dict:
+    """Part 6: ``cam_match``, ``fused_deliver`` and ``fabric_deliver`` on
+    the two Table-V residents' combined table and on Table-V beside a
+    smaller-K / S / E network (padded CAM words and SRAM entries ``-1``,
+    tag columns [512, 1024) of its clusters at zero)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t = v1["cc"].tables
+    out = {}
+    for label, parts in (("two_table_v", [t, t]), ("table_v_plus_k512", [t, hetero_tables()])):
+        out[label] = _kernels_at(dev, parts, gen, label)
+    return out
+
+
+def phase_multimodel(dev, v1) -> tuple[dict[str, int], dict]:
+    """Multi-model residency: each serving part sets the launch counts to 0
+    just before it and reads them just after; their sum must launch every
+    kernel of the path. Part 6's comparisons are not counted."""
+    launched: collections.Counter = collections.Counter()
+    queued = check_two_model_queued(dev, v1, launched)
+    fabric = check_two_model_fabric(dev, v1, launched)
+    uninterrupted = {"fused": queued["fused"]["results"], "fabric": fabric["fabric"]["results"]}
+    out = {"two_model": queued, "two_model_fabric": fabric,
+           "hot_load": check_hot_load(dev, v1, launched),
+           "replacement": check_replacement(dev, v1, launched),
+           "kill_restore": check_mm_kill_restore(dev, v1, launched, uninterrupted),
+           "kernels": check_hetero_kernels(dev, v1)}
+    missing = [name for name in MULTIMODEL_PATH_KERNELS if launched[name] == 0]
+    if missing:
+        raise AssertionError(f"multimodel phase: {missing} never launched")
+    for part in (queued, fabric):
+        for leg in part.values():
+            leg.pop("results")
+    out["launches"] = dict(launched)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "chip_smoke_multimodel.json").write_text(json.dumps(out, indent=1, default=str))
+    log(f"multimodel phase: launches {dict(launched)}")
+    return dict(launched), out["kernels"]
 
 
 # ---------------------------------------------------------------------------
@@ -1947,6 +2535,7 @@ def main() -> None:
     launches, v1 = phase_serving(dev)
     compiler_launches = phase_compiler(dev, v1)
     faults_launches = phase_faults(dev, v1)
+    multimodel_launches, mm_kernels = phase_multimodel(dev, v1)
     launches.update(phase_lm(dev))
     if set(launches) != set(kernels):
         raise AssertionError(f"serving legs launched {sorted(launches)}, kernels {sorted(kernels)}")
@@ -1956,6 +2545,12 @@ def main() -> None:
         kernels[name]["launches"] = n
         kernels[name]["launches_compiler_phase"] = compiler_launches.get(name, 0)
         kernels[name]["launches_faults_phase"] = faults_launches.get(name, 0)
+        kernels[name]["launches_multimodel_phase"] = multimodel_launches.get(name, 0)
+        for shape, at in mm_kernels.items():
+            if name in at:
+                kernels[name][f"device_ms_{shape}"] = at[name]["device_ms"]
+                log(f"{name}: device {at[name]['device_ms']} ms at the {shape} shape beside "
+                    f"{kernels[name]['device_ms']} ms at phase 2's one-model shape")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = [{**{k: v[k] for k in keys}, "kernel_ms": v["ms"],

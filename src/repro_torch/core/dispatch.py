@@ -466,6 +466,23 @@ class FabricBackend(DispatchBackend):
             device=device, entry_alive=entry_alive,
         )
 
+    def build_entries_slabs(self, per_model, cluster_size: int, k_tags: int,
+                            device: torch.device | str = "cuda"):
+        """Multi-model entry table built slab by slab (DESIGN.md §16).
+
+        ``per_model`` holds each resident's ``(src_tag, src_dest)``, laid out
+        back to back; the combined cluster count comes from the total neuron
+        count. Equal to :meth:`build_entries` on the concatenated tables
+        (kernels/fabric_deliver/ops.py ``build_fabric_entries_slabs``).
+        """
+        from repro_torch.kernels.fabric_deliver import ops as fabric_ops
+
+        n_total = sum(len(st) for st, _ in per_model)
+        return fabric_ops.build_fabric_entries_slabs(
+            per_model, cluster_size, k_tags, self.model_for(n_total // cluster_size),
+            device=device,
+        )
+
     def entry_alive_for(self, src_tag, src_dest, cluster_size: int):
         """Per-SRAM-entry survival mask ``[N, E]`` bool, or ``None``.
 

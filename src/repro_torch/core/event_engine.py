@@ -28,6 +28,12 @@ fabric delay line included) between engines as a host-side
 :class:`SlotCarry`. A fabric built with ``faults`` (a ``FaultSpec``) severs
 the same SRAM entries on the ring and the roll path.
 
+Multi-model residency (DESIGN.md §16): :class:`ModelRegistry` lays several
+compiled networks out as disjoint slabs of one table, and one engine serves
+them all; on the fabric ring its entry table is built slab by slab
+(``entry_slabs``). :func:`slice_slot_carry` / :func:`embed_slot_carry` move a
+slot's state across a change of the slab layout.
+
 ``dense_reference_step`` is the oracle: the same network as one dense
 ``[N, N, 4]`` connectivity tensor.
 """
@@ -35,6 +41,7 @@ the same SRAM entries on the ring and the roll path.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import torch
@@ -51,14 +58,17 @@ from repro_torch.core.dispatch import (
 )
 from repro_torch.core.neuron import NeuronParams, NeuronState
 from repro_torch.core.routing import Fabric, default_tile_of_cluster
-from repro_torch.core.tags import RoutingTables
+from repro_torch.core.tags import RoutingTables, TableSlab, concat_tables
 from repro_torch.core.two_stage import N_SYN_TYPES, precompute_syn_onehot
 
 __all__ = [
     "EventEngine",
     "DeliveryStats",
     "SlotCarry",
+    "ModelRegistry",
+    "embed_slot_carry",
     "reset_slots",
+    "slice_slot_carry",
     "dense_weights_from_tables",
     "dense_reference_step",
 ]
@@ -104,7 +114,9 @@ class EventEngine:
     on fabric mode, which takes precedence over ``backend`` for delivery and
     always returns stats; ``fabric_options`` configure a backend built from a
     ``Fabric``. The engine runs on ``device`` (CUDA unless the caller asks
-    for the CPU).
+    for the CPU). ``entry_slabs`` (each resident model's ``(src_tag,
+    src_dest)``, back to back) builds the fabric ring's entry table slab by
+    slab; it must span the tables' neurons and applies to the ring only.
     """
 
     def __init__(
@@ -117,6 +129,7 @@ class EventEngine:
         fabric: Fabric | FabricBackend | None = None,
         fabric_options: dict | None = None,
         autotune: dict | None = None,
+        entry_slabs=None,  # several resident models on the ring: [(src_tag_m, src_dest_m)]
     ):
         if not isinstance(tables, RoutingTables) and hasattr(tables, "tables"):
             tables = tables.tables  # CompileResult / CompiledArtifact
@@ -169,11 +182,24 @@ class EventEngine:
         # ring mode (DESIGN.md §14): a static per-SRAM-entry table, built once
         self.fabric_ring = self.fabric_backend is not None and self.fabric_backend.ring
         self._fabric_entries = None
-        if self.fabric_ring:
+        if self.fabric_ring and entry_slabs is not None:
+            # multi-model residency (DESIGN.md §16): the entry table assembled
+            # slab by slab, equal to the build from the concatenated table
+            n_total = sum(len(st) for st, _ in entry_slabs)
+            if n_total != self.n_neurons:
+                raise ValueError(
+                    f"entry_slabs span {n_total} neurons, tables have {self.n_neurons}"
+                )
+            self._fabric_entries = self.fabric_backend.build_entries_slabs(
+                entry_slabs, self.cluster_size, self.k_tags, device=self.device
+            )
+        elif self.fabric_ring:
             self._fabric_entries = self.fabric_backend.build_entries(
                 tables.src_tag, tables.src_dest, self.cluster_size, self.k_tags,
                 device=self.device, entry_alive=self._fault_entry_alive,
             )
+        elif entry_slabs is not None:
+            raise ValueError("entry_slabs only applies to the fabric ring fast path")
 
     def _autotune(self, tables, fabric, autotune) -> str:
         """Resolve ``backend="auto"``: measure (or take the injected
@@ -556,6 +582,161 @@ def reset_slots(carry, mask: torch.Tensor, fresh):
         return sel(cur, new)
 
     return tuple(leaf(c, f) for c, f in zip(carry, fresh, strict=True))
+
+
+# ---------------------------------------------------------------------------
+# Multi-model residency (DESIGN.md §16)
+# ---------------------------------------------------------------------------
+def slice_slot_carry(sc: SlotCarry, slab: TableSlab) -> SlotCarry:
+    """Restrict a :class:`SlotCarry` to one resident model's table slab.
+
+    Neuron-state leaves carry the neuron axis at position 1 (``[S, N]`` /
+    ``[S, N, 4]``); the in-flight buffer is cut on the cluster axis and
+    narrowed to the slab's own ``k_tags`` (tag activity a model never
+    compiled is structurally zero in its slab).
+    """
+    n0, n1 = slab.neuron_lo, slab.neuron_hi
+    state = NeuronState(**{f.name: np.asarray(getattr(sc.state, f.name))[:, n0:n1]
+                           for f in dataclasses.fields(NeuronState)})
+    inflight = None
+    if sc.inflight is not None:
+        inflight = np.asarray(sc.inflight)[:, :, slab.cluster_lo:slab.cluster_hi, :slab.k_tags]
+    return SlotCarry(state=state, spikes=np.asarray(sc.spikes)[:, n0:n1], inflight=inflight)
+
+
+def embed_slot_carry(sc_slab: SlotCarry, engine: "EventEngine", slab: TableSlab) -> SlotCarry:
+    """Embed a slab-restricted :class:`SlotCarry` into ``engine``'s geometry.
+
+    The inverse of :func:`slice_slot_carry`, for migration onto a pool whose
+    slab layout moved. The base is the engine's fresh init, not zeros: a
+    zero membrane sits at the firing threshold, and every neuron outside the
+    slab would spike on the first step. The in-flight buffer keeps the
+    source horizon; :meth:`EventEngine.splice_slots` re-buckets it.
+    """
+    part = np.asarray(sc_slab.spikes)
+    s = part.shape[0]
+    if part.shape[-1] != slab.n_neurons:
+        raise ValueError(
+            f"SlotCarry holds {part.shape[-1]} neurons but the slab spans {slab.n_neurons}"
+        )
+    base = engine.extract_slots(engine.init_state(batch=s), np.arange(s))
+    n0, n1 = slab.neuron_lo, slab.neuron_hi
+
+    def put(full, p):
+        full = np.array(full)
+        full[:, n0:n1] = p
+        return full
+
+    state = NeuronState(**{f.name: put(getattr(base.state, f.name), getattr(sc_slab.state, f.name))
+                           for f in dataclasses.fields(NeuronState)})
+    spikes = put(base.spikes, part)
+    inflight = None
+    if engine.fabric_backend is not None:
+        if sc_slab.inflight is None:
+            inflight = base.inflight
+        else:
+            src = np.asarray(sc_slab.inflight)
+            if src.shape[-2:] != (slab.n_clusters, slab.k_tags):
+                raise ValueError(
+                    f"SlotCarry in-flight grid {src.shape[-2:]} != slab "
+                    f"({slab.n_clusters}, {slab.k_tags})"
+                )
+            if slab.k_tags > engine.k_tags:
+                raise ValueError(f"slab k_tags {slab.k_tags} exceeds engine K {engine.k_tags}")
+            inflight = np.zeros((s, src.shape[1], engine.n_clusters, engine.k_tags), np.float32)
+            inflight[:, :, slab.cluster_lo:slab.cluster_hi, :slab.k_tags] = src
+    elif sc_slab.inflight is not None and np.any(sc_slab.inflight):
+        raise ValueError(
+            "SlotCarry holds in-flight fabric events but the target engine "
+            "has no fabric delay line to receive them"
+        )
+    return SlotCarry(state=state, spikes=spikes, inflight=inflight)
+
+
+class ModelRegistry:
+    """Ordered set of resident compiled networks sharing one engine (§16).
+
+    Each model keeps its own :class:`RoutingTables`; :meth:`combined`
+    concatenates them into disjoint neuron and cluster slabs
+    (:func:`~repro_torch.core.tags.concat_tables`). The slab layout follows
+    insertion order, so which models are resident, in which order, is the
+    whole identity of the combined engine: :meth:`fingerprint` hashes
+    exactly that, as ``repro``'s registry does, and checkpoint restore
+    compares it.
+    """
+
+    def __init__(self, models=None):
+        self._models: dict[str, RoutingTables] = {}
+        for name, tables in (models or {}).items():
+            self.load(name, tables)
+
+    @staticmethod
+    def _unwrap(tables) -> RoutingTables:
+        # CompileResult / CompiledArtifact / CompiledCnn wrappers
+        while hasattr(tables, "tables"):
+            tables = tables.tables
+        return tables
+
+    def load(self, name: str, tables) -> None:
+        if name in self._models:
+            raise ValueError(f"model {name!r} already resident")
+        tables = self._unwrap(tables)
+        for other_name, other in self._models.items():
+            if other.cluster_size != tables.cluster_size:
+                raise ValueError(
+                    f"model {name!r} cluster_size {tables.cluster_size} != "
+                    f"resident {other_name!r} cluster_size {other.cluster_size}"
+                )
+        self._models[name] = tables
+
+    def unload(self, name: str) -> None:
+        if name not in self._models:
+            raise KeyError(f"model {name!r} is not resident")
+        del self._models[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._models
+
+    def __len__(self) -> int:
+        return len(self._models)
+
+    @property
+    def names(self) -> list[str]:
+        return list(self._models)
+
+    def tables_of(self, name: str) -> RoutingTables:
+        return self._models[name]
+
+    def slabs(self) -> dict[str, TableSlab]:
+        """Slab layout by model name, in insertion order."""
+        out, n0, c0 = {}, 0, 0
+        for name, t in self._models.items():
+            out[name] = TableSlab(neuron_lo=n0, neuron_hi=n0 + t.n_neurons, cluster_lo=c0,
+                                  cluster_hi=c0 + t.n_clusters, k_tags=t.k_tags)
+            n0 += t.n_neurons
+            c0 += t.n_clusters
+        return out
+
+    def combined(self) -> tuple[RoutingTables, dict[str, TableSlab]]:
+        """(combined tables, slab layout by name). A single resident model
+        returns its own tables, so a registry of one changes nothing."""
+        if not self._models:
+            raise ValueError("registry holds no resident models")
+        names = list(self._models)
+        if len(names) == 1:
+            return self._models[names[0]], self.slabs()
+        tables, slab_list = concat_tables(list(self._models.values()))
+        return tables, dict(zip(names, slab_list))
+
+    def fingerprint(self) -> str:
+        """sha256 over (name, table fingerprint) pairs in slab order."""
+        h = hashlib.sha256()
+        for name, t in self._models.items():
+            h.update(name.encode())
+            h.update(b"\x00")
+            h.update(t.fingerprint().encode())
+            h.update(b"\x01")
+        return h.hexdigest()
 
 
 def dense_weights_from_tables(tables: RoutingTables) -> np.ndarray:

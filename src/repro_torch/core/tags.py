@@ -21,7 +21,9 @@ core/compiler.py also merges units whose source sets are identical.
 
 Tag numbers follow from group order, ``sorted`` cluster order and
 ``itertools.groupby`` runs exactly as in the reference, so the tables are
-byte-equal to ``repro``'s for the same spec.
+byte-equal to ``repro``'s for the same spec. :func:`concat_tables` lays
+several models' tables side by side as disjoint :class:`TableSlab` s of one
+table (multi-model residency, DESIGN.md §16).
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ __all__ = [
     "SynapseType",
     "NetworkSpec",
     "RoutingTables",
+    "TableSlab",
+    "concat_tables",
     "AllocUnit",
     "expand_units",
     "compile_network",
@@ -193,6 +197,95 @@ class RoutingTables:
                 for j, syn in subs[(cl, t)]:
                     rows.append((i, j, syn))
         return np.asarray(sorted(rows), dtype=np.int32).reshape(-1, 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class TableSlab:
+    """One resident model's region of a concatenated multi-model table.
+
+    Slabs partition both axes of the shared address space: neurons
+    ``[neuron_lo, neuron_hi)`` and clusters ``[cluster_lo, cluster_hi)``
+    belong to this model alone, and its tags live in ``[0, k_tags)`` of each
+    of its clusters' tag spaces. Clusters are disjoint, so two models may use
+    the same tag ids: the (cluster, tag) pair is the routed address
+    (DESIGN.md §16).
+    """
+
+    neuron_lo: int
+    neuron_hi: int
+    cluster_lo: int
+    cluster_hi: int
+    k_tags: int  # the model's own K (<= the combined table's K)
+
+    @property
+    def n_neurons(self) -> int:
+        return self.neuron_hi - self.neuron_lo
+
+    @property
+    def n_clusters(self) -> int:
+        return self.cluster_hi - self.cluster_lo
+
+
+def concat_tables(
+    tables_list: Sequence[RoutingTables],
+) -> tuple[RoutingTables, list[TableSlab]]:
+    """Concatenate per-model routing tables into one slab-addressed table.
+
+    Model ``m`` occupies neurons ``[slab.neuron_lo, slab.neuron_hi)`` and
+    clusters ``[slab.cluster_lo, slab.cluster_hi)``; only ``src_dest`` is
+    rebased (by the cluster offset), tag values never are. Entry, CAM and
+    tag widths are padded to the models' maxima with empty ``-1`` words.
+
+    Every model must share ``cluster_size``. Placements compose all or
+    none: when every model carries a ``tile_of_cluster`` the combined table
+    concatenates them, when none does it carries none, and a mix raises.
+    The tables and messages are ``repro``'s.
+    """
+    if not tables_list:
+        raise ValueError("concat_tables needs at least one table")
+    cs = tables_list[0].cluster_size
+    for i, t in enumerate(tables_list):
+        if t.cluster_size != cs:
+            raise ValueError(
+                f"model {i} has cluster_size={t.cluster_size}, expected {cs} "
+                "— slabs must tile a uniform cluster grid"
+            )
+    e_max = max(t.src_tag.shape[1] for t in tables_list)
+    s_max = max(t.cam_tag.shape[1] for t in tables_list)
+    k_max = max(t.k_tags for t in tables_list)
+    n_total = sum(t.n_neurons for t in tables_list)
+    src_tag = np.full((n_total, e_max), -1, dtype=np.int32)
+    src_dest = np.full((n_total, e_max), -1, dtype=np.int32)
+    cam_tag = np.full((n_total, s_max), -1, dtype=np.int32)
+    cam_syn = np.zeros((n_total, s_max), dtype=np.int32)
+    slabs: list[TableSlab] = []
+    n0 = 0
+    for t in tables_list:
+        n1 = n0 + t.n_neurons
+        c0 = n0 // cs
+        e, s = t.src_tag.shape[1], t.cam_tag.shape[1]
+        src_tag[n0:n1, :e] = t.src_tag
+        src_dest[n0:n1, :e] = np.where(t.src_dest >= 0, t.src_dest + c0, -1)
+        cam_tag[n0:n1, :s] = t.cam_tag
+        cam_syn[n0:n1, :s] = t.cam_syn
+        slabs.append(TableSlab(neuron_lo=n0, neuron_hi=n1, cluster_lo=c0,
+                               cluster_hi=n1 // cs, k_tags=t.k_tags))
+        n0 = n1
+    placed = [t.tile_of_cluster is not None for t in tables_list]
+    if any(placed) and not all(placed):
+        raise ValueError(
+            "cannot concatenate tables with and without tile_of_cluster — "
+            "stamp an explicit placement on every model (or on none)"
+        )
+    tile_of_cluster = (
+        np.concatenate([np.asarray(t.tile_of_cluster) for t in tables_list])
+        if all(placed) else None
+    )
+    combined = RoutingTables(
+        src_tag=src_tag, src_dest=src_dest, cam_tag=cam_tag, cam_syn=cam_syn,
+        cluster_size=cs, k_tags=k_max, tile_of_cluster=tile_of_cluster,
+    )
+    return combined, slabs
 
 
 @dataclasses.dataclass(frozen=True)

@@ -209,14 +209,20 @@ inline bool vector_rows(const void* a, const void* b, int words) {
 
 // Registers and local (spill) bytes per thread of `kernel`, and the blocks
 // of kThreads threads with `smem` dynamic shared bytes that fit on one SM.
+// The kernel's dynamic shared-memory cap is raised to `smem` where it is
+// lower, never lowered: a cap set to a small footprint would make every
+// later launch with a larger one (still under the 48 KB default, where
+// launch() opts in to nothing) fail with "invalid argument".
 template <typename Kernel>
 cudaError_t kernel_info(Kernel kernel, int smem, int* registers, int* local_bytes,
                         int* blocks_per_sm) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
   cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, kernel);
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return e;
+  if (smem > attr.maxDynamicSharedSizeBytes) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
   *registers = attr.numRegs;
   *local_bytes = static_cast<int>(attr.localSizeBytes);
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);

@@ -4,7 +4,8 @@ wrapper of the ``fabric_deliver`` CUDA kernel (``csrc/fabric_deliver.cu``).
 Counterpart of ``repro.kernels.fabric_deliver.ops``. The roll-based fabric
 step re-derives every event's route per step; all of that is a function of
 the routing tables, which never change at run time.
-:func:`build_fabric_entries` hoists it to engine construction: one host-side
+:func:`build_fabric_entries` hoists it to engine construction (and
+:func:`build_fabric_entries_slabs` for several resident models): one host-side
 pass enumerates the ``M`` occupied SRAM entries and precomputes, per entry,
 the flat destination address, arrival delay, directed-link bin and the
 Table II-IV per-event figures, statically sorted in **arbitration order**
@@ -52,6 +53,7 @@ __all__ = [
     "FabricEntries",
     "WorkSplit",
     "build_fabric_entries",
+    "build_fabric_entries_slabs",
     "entry_cluster_ranges",
     "fabric_deliver",
     "fabric_deliver_ring",
@@ -174,6 +176,55 @@ def build_fabric_entries(
     return _to_device(
         _entries_from_raw(src_ids, e_ids, tag, dst, cluster_size, k_tags, model, alive),
         device, n_clusters, k_tags,
+    )
+
+
+def build_fabric_entries_slabs(
+    per_model,  # sequence of (src_tag_m [N_m, E_m], src_dest_m [N_m, E_m])
+    cluster_size: int,
+    k_tags: int,  # the combined table's K (flat dstk addressing)
+    model,  # routing.FabricDeliveryModel over the combined cluster count
+    device: torch.device | str = "cuda",
+) -> FabricEntries:
+    """Entry table for several resident models, built slab by slab.
+
+    Each model's raw entry rows are rebased by its slab's neuron and cluster
+    offsets (slabs laid out back to back, in order), then one arbitration
+    sort merges them: the models share the link FIFOs, so each link's group
+    interleaves every model's entries in source order. Equal to
+    :func:`build_fabric_entries` on the concatenated table
+    (``tags.concat_tables``), ``cluster_start`` / ``cluster_order`` included:
+    they are taken at the combined cluster count and K.
+
+    A faulted ``model`` raises: the fault masks are drawn over the full
+    table grid, so it must be built from the concatenated tables.
+    """
+    if getattr(model, "pair_alive", None) is not None:
+        raise ValueError(
+            "build_fabric_entries_slabs does not support fault injection — "
+            "build from the concatenated tables (build_fabric_entries) so "
+            "the route-erasure draw sees the full table grid"
+        )
+    srcs, ents, tags, dsts = [], [], [], []
+    n0 = 0
+    nc = np.asarray(model.tile_of_cluster).shape[0]
+    for src_tag_m, src_dest_m in per_model:
+        src_tag_m = np.asarray(torch.as_tensor(src_tag_m).cpu())
+        src_dest_m = np.asarray(torch.as_tensor(src_dest_m).cpu())
+        c0 = n0 // cluster_size
+        s_m, e_m = np.nonzero(src_tag_m >= 0)
+        srcs.append(s_m + n0)
+        ents.append(e_m)
+        tags.append(src_tag_m[s_m, e_m].astype(np.int64))
+        dsts.append(np.clip(src_dest_m[s_m, e_m] + c0, 0, nc - 1).astype(np.int64))
+        n0 += src_tag_m.shape[0]
+    src_ids = np.concatenate(srcs) if srcs else np.zeros(0, np.int64)
+    if src_ids.size == 0:
+        return _to_device(_pad_entries(), device, nc, k_tags)
+    return _to_device(
+        _entries_from_raw(src_ids, np.concatenate(ents), np.concatenate(tags),
+                          np.concatenate(dsts), cluster_size, k_tags, model),
+        device, nc, k_tags,
     )
 
 

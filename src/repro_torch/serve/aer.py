@@ -1,8 +1,7 @@
-"""Continuous-batching AER serving: a DVS session pool (single model).
+"""Continuous-batching AER serving: a multi-tenant DVS session pool.
 
-Counterpart of ``repro.serve.aer`` for one resident Table-V model, in queued
-mode or over the executable fabric (``build_poker_engine(tables,
-"fabric")``):
+Counterpart of ``repro.serve.aer``, in queued mode or over the executable
+fabric (``build_poker_engine(tables, "fabric")``):
 
   * a **fixed-slot pool**: the engine carry is batched to ``pool_size``
     once; every slot is one tenant's neuron state, previous-step spikes and,
@@ -16,8 +15,16 @@ A fabric engine built with ``per_link_stats`` also feeds every step's
 per-cluster-pair delivered counts and per-link drops into the pool's
 :class:`~repro_torch.core.compiler.TrafficProfile` (``pool.profile``), the
 measured traffic that ``optimize_placement`` re-places against. The pool's
-``fingerprint()`` identifies its serving geometry as ``repro``'s does for a
-single resident model named ``"default"``.
+``fingerprint()`` identifies its serving geometry as ``repro``'s does.
+
+Multi-model residency (DESIGN.md §16): ``AerSessionPool.from_models`` serves
+several compiled networks from one engine over their concatenated tables
+(a :class:`~repro_torch.core.event_engine.ModelRegistry`; a pool built from
+one ``CompiledCnn`` is a registry of one, named ``"default"``). Each session
+names its model (``DvsSession.model``); its input lands in its model's slab
+of the combined ``[n_clusters, K]`` grid and its readout is read at the
+slab's neuron offset. ``load_model`` / ``unload_model`` rebuild the engine
+under live sessions, whose state moves across the slab re-layout.
 
 Recovery (DESIGN.md §15): a free slot can be quarantined (withdrawn from
 admission); a live session moves between pools with its full runtime state
@@ -49,7 +56,14 @@ from repro_torch.core.cnn import (
     poker_neuron_params,
 )
 from repro_torch.core.compiler import TrafficProfile
-from repro_torch.core.event_engine import DeliveryStats, EventEngine, SlotCarry
+from repro_torch.core.event_engine import (
+    DeliveryStats,
+    EventEngine,
+    ModelRegistry,
+    SlotCarry,
+    embed_slot_carry,
+    slice_slot_carry,
+)
 from repro_torch.core.routing import Fabric
 from repro_torch.core.tags import RoutingTables
 from repro_torch.data.pipeline import DvsStreamConfig, DvsStreamSource, symbol_dvs_events
@@ -66,10 +80,6 @@ __all__ = [
     "session_from_meta",
     "tune_poker_readout",
 ]
-
-# the pool's one resident model, named as repro names a single-model pool's
-_MODEL = "default"
-
 
 def session_from_meta(
     sm: dict, models, source_factory=None, slot: int | None = None
@@ -107,6 +117,7 @@ def session_from_meta(
         session_id=sm["session_id"],
         source=source,
         label=sm["label"],
+        model=model,
         tenant=sm.get("tenant"),
         step=int(sm["step"]),
         counts=None if sm["counts"] is None else np.asarray(sm["counts"], dtype=np.float64),
@@ -138,6 +149,7 @@ def build_poker_engine(
     fabric_options: dict | None = None,
     autotune: dict | None = None,
     faults=None,
+    entry_slabs=None,
 ) -> EventEngine:
     """Event engine at the §V serving operating point for a dispatch backend.
 
@@ -153,6 +165,8 @@ def build_poker_engine(
     :class:`~repro_torch.core.faults.FaultSpec`) needs the fabric backend.
     Memory faults are applied to the tables beforehand
     (``faults.apply_table_faults``) and served on any backend.
+    ``entry_slabs`` (several resident models' ``(src_tag, src_dest)``)
+    builds the fabric ring's entry table slab by slab.
     """
     if not isinstance(tables, RoutingTables) and hasattr(tables, "tables"):
         tables = tables.tables
@@ -166,10 +180,12 @@ def build_poker_engine(
             raise ValueError("autotune applies to backend='auto', not fabric")
         return EventEngine(
             tables, params, queue_capacity=q_cap, device=device, fabric=Fabric(),
-            fabric_options=opts,
+            fabric_options=opts, entry_slabs=entry_slabs,
         )
     if faults is not None:
         raise ValueError(f"fault injection needs the fabric backend, got {backend!r}")
+    if entry_slabs is not None:
+        raise ValueError("entry_slabs only applies to the fabric backend")
     if fabric_options is not None:
         raise ValueError(f"fabric_options need the fabric backend, got {backend!r}")
     return EventEngine(tables, params, backend=backend, queue_capacity=q_cap, device=device,
@@ -216,6 +232,9 @@ class DvsSession:
     session_id: int
     source: DvsStreamSource
     label: int | None = None  # ground truth when known (synthetic streams)
+    # which resident model serves this tenant: data, never shape. None
+    # resolves to the pool's sole resident model at admission
+    model: str | None = None
     # fairness identity for max_inflight_per_tenant; None = its own tenant
     tenant: int | str | None = None
     # runtime state, owned by the pool
@@ -247,18 +266,6 @@ class SessionResult:
         return None if self.label is None else self.prediction == self.label
 
 
-def _registry_fingerprint(models: dict[str, RoutingTables]) -> str:
-    """sha256 over (name, table fingerprint) pairs in slab order, as
-    ``repro``'s ``ModelRegistry.fingerprint`` hashes its resident models."""
-    h = hashlib.sha256()
-    for name, t in models.items():
-        h.update(name.encode())
-        h.update(b"\x00")
-        h.update(t.fingerprint().encode())
-        h.update(b"\x01")
-    return h.hexdigest()
-
-
 def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
     """Copy tensors to the host with one wait on the device."""
     host = [t.to("cpu", non_blocking=True) for t in tensors]
@@ -271,21 +278,29 @@ class AerSessionPool:
     """Fixed-slot continuous batching over the batched event engine.
 
     ``engine`` is an :class:`EventEngine` over the compiled CNN's tables
-    built with ``queue_capacity`` or in fabric mode (as
-    :func:`build_poker_engine` does). The carry is allocated once at
-    ``pool_size`` on the engine's device and reset per slot on eviction;
-    session bookkeeping stays on the host. A fabric engine with
-    ``per_link_stats`` is served with its link drops summed per session and
-    feeds :attr:`profile` (``None`` for every other engine).
+    (with ``models``: over the resident models' concatenated tables) built
+    with ``queue_capacity`` or in fabric mode (as :func:`build_poker_engine`
+    does). The carry is allocated once at ``pool_size`` on the engine's
+    device and reset per slot on eviction; session bookkeeping stays on the
+    host. A fabric engine with ``per_link_stats`` is served with its link
+    drops summed per session and feeds :attr:`profile` (``None`` for every
+    other engine). A pool built by :meth:`from_models` owns its engine
+    recipe (``engine_kw``) and can load and unload models live.
     """
 
-    def __init__(self, cc: CompiledCnn, engine: EventEngine, cfg: AerServeConfig):
+    def __init__(self, cc: CompiledCnn, engine: EventEngine, cfg: AerServeConfig, *,
+                 models: dict[str, CompiledCnn] | None = None, engine_kw: dict | None = None):
         if cfg.pool_size <= 0:
             raise ValueError(f"pool_size must be positive, got {cfg.pool_size}")
-        if engine.n_neurons != cc.tables.n_neurons:
+        # a registry of one by default: the single-model pool is the
+        # degenerate case of multi-model residency (DESIGN.md §16)
+        self.models: dict[str, CompiledCnn] = dict(models) if models else {"default": cc}
+        self.registry = ModelRegistry({name: m.tables for name, m in self.models.items()})
+        combined, self.slabs = self.registry.combined()
+        if engine.n_neurons != combined.n_neurons:
             raise ValueError(
                 f"engine serves {engine.n_neurons} neurons, compiled CNN has "
-                f"{cc.tables.n_neurons}"
+                f"{combined.n_neurons}"
             )
         if engine.queue_capacity is None and engine.fabric_backend is None:
             raise ValueError("the pool reads drop counts: build the engine with queue_capacity")
@@ -293,33 +308,170 @@ class AerSessionPool:
         self.engine = engine
         self.cfg = cfg
         self.n_classes = cc.cfg.n_classes
+        self._engine_kw = engine_kw  # set by from_models: enables load/unload
         self.carry = engine.init_state(batch=cfg.pool_size)
         self.slots: list[DvsSession | None] = [None] * cfg.pool_size
         self.quarantined: set[int] = set()  # slots withdrawn from admission
         self.n_steps = 0  # engine steps taken (all slots advance together)
         self.last_stats = None  # DeliveryStats of the most recent step()
-        self._zero_act = np.zeros((engine.n_clusters, engine.k_tags), dtype=np.float32)
         # observed-traffic feedback (DESIGN.md §18): the empirical traffic
         # matrix that optimize_placement re-places against
+        self.profile = self._fresh_profile(engine)
+
+    @staticmethod
+    def _fresh_profile(engine: EventEngine) -> TrafficProfile | None:
         fb = engine.fabric_backend
-        self.profile = (
-            TrafficProfile.empty(engine.n_clusters, engine.fabric_model.n_tiles)
-            if fb is not None and fb.per_link_stats else None
-        )
+        if fb is None or not fb.per_link_stats:
+            return None
+        return TrafficProfile.empty(engine.n_clusters, engine.fabric_model.n_tiles)
+
+    # -- multi-model residency (DESIGN.md §16) -----------------------------
+    @staticmethod
+    def _engine_for(models: dict[str, CompiledCnn], engine_kw: dict) -> EventEngine:
+        """One engine over the concatenated slabs of every resident model.
+
+        On the fabric ring the entry table is assembled slab by slab; a
+        faulted fabric needs the full-grid draw, so it builds from the
+        concatenated table instead (the two builds are equal).
+        """
+        registry = ModelRegistry({name: m.tables for name, m in models.items()})
+        combined, _ = registry.combined()
+        entry_slabs = None
+        if len(models) > 1 and engine_kw.get("backend") == "fabric" \
+                and engine_kw.get("faults") is None:
+            entry_slabs = [(t.src_tag, t.src_dest)
+                           for t in (registry.tables_of(n) for n in registry.names)]
+        return build_poker_engine(combined, entry_slabs=entry_slabs, **engine_kw)
+
+    @classmethod
+    def from_models(
+        cls,
+        models: dict[str, CompiledCnn],
+        cfg: AerServeConfig,
+        *,
+        backend: str = "reference",
+        device: torch.device | str = "cuda",
+        faults=None,
+        fabric_options: dict | None = None,
+        autotune: dict | None = None,
+    ) -> "AerSessionPool":
+        """Pool with several resident models sharing one engine on ``device``.
+
+        Sessions pick their model by name at admission (``DvsSession.model``):
+        model identity is per-slot data, so a mix of tenants on different
+        models is one engine step. Pools built this way own their engine
+        recipe and support :meth:`load_model` / :meth:`unload_model` on a
+        live pool. ``backend``, ``faults``, ``fabric_options`` and
+        ``autotune`` are :func:`build_poker_engine`'s.
+        """
+        if not models:
+            raise ValueError("from_models needs at least one resident model")
+        engine_kw = {"backend": backend, "device": device, "faults": faults,
+                     "fabric_options": fabric_options, "autotune": autotune}
+        engine = cls._engine_for(models, engine_kw)
+        first = next(iter(models.values()))
+        return cls(first, engine, cfg, models=models, engine_kw=engine_kw)
 
     def fingerprint(self) -> str:
-        """Identity of this pool's serving geometry: the resident model
-        (a registry of one, named ``"default"``) × delivery mode × pool size
-        (× the autotuned dispatch decision), hashed as ``repro``'s pool
-        does."""
+        """Identity of this pool's serving geometry: the resident models
+        (tables and slab order) × delivery mode × pool size (× the autotuned
+        dispatch decision), hashed as ``repro``'s pool does. Checkpoints
+        carry it; restore refuses a mismatch."""
         eng = self.engine
         mode = "ring" if eng.fabric_ring else "fabric" if eng.fabric_backend is not None else "queued"
         h = hashlib.sha256()
-        h.update(_registry_fingerprint({_MODEL: self.cc.tables}).encode())
+        h.update(self.registry.fingerprint().encode())
         h.update(f"|{mode}|P{self.cfg.pool_size}".encode())
         if eng.autotune_decision is not None:
             h.update(f"|{eng.autotune_decision.token()}".encode())
         return h.hexdigest()
+
+    def _resolve_model(self, session: DvsSession) -> str:
+        name = session.model
+        if name is None:
+            if len(self.models) > 1:
+                raise ValueError(
+                    "session must name its model when several are resident "
+                    f"(have {list(self.models)})"
+                )
+            name = next(iter(self.models))
+            session.model = name
+        elif name not in self.models:
+            raise KeyError(f"model {name!r} is not resident (have {list(self.models)})")
+        return name
+
+    def _require_recipe(self) -> None:
+        if self._engine_kw is None:
+            raise RuntimeError(
+                "this pool wraps a caller-built engine and cannot rebuild it;"
+                " construct with AerSessionPool.from_models to enable hot-swap"
+            )
+
+    def load_model(self, name: str, cc: CompiledCnn) -> None:
+        """Make ``cc`` resident under ``name`` on the live pool.
+
+        Sessions in flight keep running: their slots' state moves onto the
+        rebuilt engine (slab slice, fresh-init embed, splice) and their
+        readout accumulators are untouched.
+        """
+        self._require_recipe()
+        if name in self.models:
+            raise ValueError(f"model {name!r} already resident")
+        self._rebind({**self.models, name: cc})
+
+    def unload_model(self, name: str) -> None:
+        """Remove a resident model from the live pool; refuses while sessions
+        still run on it, and refuses the last model."""
+        self._require_recipe()
+        if name not in self.models:
+            raise KeyError(f"model {name!r} is not resident")
+        if len(self.models) == 1:
+            raise ValueError("cannot unload the last resident model")
+        live = [i for i, s in enumerate(self.slots) if s is not None and s.model == name]
+        if live:
+            raise RuntimeError(
+                f"model {name!r} has live sessions in slots {live}; drain "
+                "them before unloading"
+            )
+        self._rebind({n: m for n, m in self.models.items() if n != name})
+
+    def _rebind(self, new_models: dict[str, CompiledCnn]) -> None:
+        """Swap the pool onto a rebuilt engine for ``new_models``, moving
+        every occupied slot's state across the slab re-layout: one extract,
+        slice, embed and splice per model with live sessions."""
+        new_engine = self._engine_for(new_models, self._engine_kw)
+        new_registry = ModelRegistry({name: m.tables for name, m in new_models.items()})
+        new_slabs = new_registry.slabs()
+        new_carry = new_engine.init_state(batch=self.cfg.pool_size)
+        for name in dict.fromkeys(s.model for s in self.slots if s is not None):
+            slots = [i for i, s in enumerate(self.slots) if s is not None and s.model == name]
+            part = slice_slot_carry(self.engine.extract_slots(self.carry, slots), self.slabs[name])
+            emb = embed_slot_carry(part, new_engine, new_slabs[name])
+            new_carry = new_engine.splice_slots(new_carry, slots, emb)
+        self.models = dict(new_models)
+        self.registry = new_registry
+        self.slabs = new_slabs
+        self.engine = new_engine
+        self.carry = new_carry
+        # measurements under the old geometry do not describe the new one
+        self.profile = self._fresh_profile(new_engine)
+
+    def clone_onto(self, new_engine: EventEngine, cfg: AerServeConfig | None = None
+                   ) -> "AerSessionPool":
+        """New pool on ``new_engine`` (same slab geometry) with every live
+        session migrated: each tenant's neuron state, previous-step spikes
+        and phase-normalized in-flight fabric events (``extract_slots`` /
+        ``splice_slots``) and its readout accumulators. The resident model
+        set and the engine recipe carry over; quarantine records do not."""
+        new_pool = AerSessionPool(self.cc, new_engine, cfg or self.cfg, models=self.models,
+                                  engine_kw=self._engine_kw)
+        occ = self.occupied
+        if occ:
+            sc = self.engine.extract_slots(self.carry, occ)
+            target = [new_pool.admit_restored(self.slots[i]) for i in occ]
+            new_pool.carry = new_engine.splice_slots(new_pool.carry, target, sc)
+        new_pool.n_steps = self.n_steps
+        return new_pool
 
     # -- lifecycle ---------------------------------------------------------
     @property
@@ -356,8 +508,9 @@ class AerSessionPool:
                 else "no admissible slot: the pool's free slots are all quarantined"
             )
         slot = free[0]
+        name = self._resolve_model(session)
         session.step = 0
-        session.counts = np.zeros(self.n_classes, dtype=np.float64)
+        session.counts = np.zeros(self.models[name].cfg.n_classes, dtype=np.float64)
         session.dropped = 0
         session.link_dropped = 0
         session.error = None  # a re-admitted session retries with a clean slate
@@ -379,24 +532,10 @@ class AerSessionPool:
                 "admit_restored needs a session with live runtime state — "
                 "use admit() for new sessions"
             )
+        self._resolve_model(session)
         slot = free[0]
         self.slots[slot] = session
         return slot
-
-    def clone_onto(self, new_engine: EventEngine, cfg: AerServeConfig | None = None
-                   ) -> "AerSessionPool":
-        """New pool on ``new_engine`` with every live session migrated: each
-        tenant's neuron state, previous-step spikes and phase-normalized
-        in-flight fabric events (``extract_slots`` / ``splice_slots``) and its
-        readout accumulators. Quarantine records do not carry over."""
-        new_pool = AerSessionPool(self.cc, new_engine, cfg or self.cfg)
-        occ = self.occupied
-        if occ:
-            sc = self.engine.extract_slots(self.carry, occ)
-            target = [new_pool.admit_restored(self.slots[i]) for i in occ]
-            new_pool.carry = new_engine.splice_slots(new_pool.carry, target, sc)
-        new_pool.n_steps = self.n_steps
-        return new_pool
 
     def extract_session(self, slot: int) -> tuple[DvsSession, SlotCarry]:
         """Remove the tenant in ``slot`` mid-flight with its runtime state.
@@ -484,28 +623,30 @@ class AerSessionPool:
     def gather_inputs(self) -> np.ndarray:
         """This step's external tag activity ``[P, n_clusters, K]`` (numpy):
         each occupied slot's stream events at the session's own step, times
-        ``cfg.drive``; zero for vacant slots and for a session whose packet
-        was refused (which is then marked errored)."""
-        acts = []
-        for sess in self.slots:
+        ``cfg.drive``, in its model's slab of the grid (``[cluster_lo:
+        cluster_hi, :k_tags]``); zero elsewhere, for vacant slots and for a
+        session whose packet was refused (which is then marked errored)."""
+        inp = np.zeros((self.cfg.pool_size, self.engine.n_clusters, self.engine.k_tags),
+                       dtype=np.float32)
+        for i, sess in enumerate(self.slots):
             if sess is None:
-                acts.append(self._zero_act)
                 continue
             try:
-                a = self.cc.input_activity(
+                a = self.models[sess.model].input_activity(
                     sess.source.events(sess.step), on_invalid=self.cfg.on_invalid
                 )
             except ValueError as e:
                 sess.error = str(e)
-                acts.append(self._zero_act)
                 continue
-            acts.append(a * self.cfg.drive)
-        return np.stack(acts)
+            slab = self.slabs[sess.model]
+            inp[i, slab.cluster_lo:slab.cluster_hi, :slab.k_tags] = a * self.cfg.drive
+        return inp
 
     def finish_step(self, out) -> np.ndarray:
         """Bring a launched step's spikes, drop counts, (fabric mode) link
         drop counts and (with a profile) its traffic sums to the host in one
-        wait on the device, and apply them per session and to the profile."""
+        wait on the device, and apply them per session (each read at its
+        model's slab offset) and to the profile."""
         spikes_t, stats = out
         link_t = stats.link_dropped
         if link_t is not None and link_t.ndim > spikes_t.ndim - 1:
@@ -525,11 +666,13 @@ class AerSessionPool:
             )
         self.last_stats = stats
         self.n_steps += 1
-        o0, o1 = self.cc.out
         for i, sess in enumerate(self.slots):
             if sess is None:
                 continue
-            sess.counts += spikes[i, o0:o1].reshape(self.n_classes, -1).sum(-1)
+            cc_m = self.models[sess.model]
+            base = self.slabs[sess.model].neuron_lo
+            o0, o1 = cc_m.out
+            sess.counts += spikes[i, base + o0:base + o1].reshape(cc_m.cfg.n_classes, -1).sum(-1)
             sess.step += 1
             sess.dropped += int(dropped[i])
             if link:
@@ -567,7 +710,7 @@ class AerSessionPool:
         return {
             "session_id": sess.session_id,
             "label": sess.label,
-            "model": _MODEL,
+            "model": sess.model,
             "tenant": sess.tenant,
             "step": sess.step,
             "counts": None if sess.counts is None else sess.counts.tolist(),
@@ -589,7 +732,7 @@ class AerSessionPool:
             "n_steps": self.n_steps,
             "pool_size": self.cfg.pool_size,
             "fingerprint": self.fingerprint(),
-            "models": [_MODEL],
+            "models": list(self.models),
             "quarantined": sorted(self.quarantined),
             "slots": [None if s is None else self._session_meta(s) for s in self.slots],
         }
@@ -620,7 +763,7 @@ class AerSessionPool:
             )
         slots = [
             None if sm is None
-            else session_from_meta(sm, [_MODEL], source_factory=source_factory, slot=i)
+            else session_from_meta(sm, self.models, source_factory=source_factory, slot=i)
             for i, sm in enumerate(meta["slots"])
         ]
         self.carry = tree["carry"]
@@ -641,7 +784,8 @@ class AerSessionPool:
 
     @classmethod
     def restore(cls, cc: CompiledCnn, engine: EventEngine, cfg: AerServeConfig, ckptr,
-                step: int | None = None, source_factory=None) -> "AerSessionPool":
+                step: int | None = None, source_factory=None,
+                models: dict[str, CompiledCnn] | None = None) -> "AerSessionPool":
         """Rebuild a pool from a :meth:`checkpoint` snapshot.
 
         ``engine`` must have the checkpointed carry's geometry (same neuron
@@ -649,13 +793,15 @@ class AerSessionPool:
         ``step`` defaults to the latest complete checkpoint. Sessions whose
         source was not a :class:`DvsStreamSource` need
         ``source_factory(slot_meta) -> source``, else restore raises
-        ``TypeError``.
+        ``TypeError``. ``models`` is the resident model set of a
+        multi-model pool, in the checkpointed pool's order (another set or
+        order raises :class:`CheckpointMismatchError`).
         """
         if step is None:
             step = ckptr.latest_step()
             if step is None:
                 raise FileNotFoundError(f"no complete checkpoint under {ckptr.dir}")
-        pool = cls(cc, engine, cfg)
+        pool = cls(cc, engine, cfg, models=models)
         like = {"carry": pool.carry, "session_meta": np.zeros(0, np.uint8)}
         try:
             tree = ckptr.restore(step, like)

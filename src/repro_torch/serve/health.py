@@ -1,7 +1,7 @@
 """Serving health: watchdog, typed fault events, and the resilient drain loop.
 
-Counterpart of ``repro.serve.health`` for the single-model pool, with the
-reference's event kinds, messages, hysteresis and backoff. Degraded-mode
+Counterpart of ``repro.serve.health``, with the reference's event kinds,
+messages, hysteresis and backoff. Degraded-mode
 serving (DESIGN.md §15) layers three escalation stages over the session
 pool, from cheapest to most disruptive:
 
@@ -24,10 +24,11 @@ The watchdog reads only what the pool already exposes per step
 (``pool.last_stats`` and the per-session readout accumulators), so
 observing never perturbs the tenants it watches.
 
-``FleetWatchdog`` (sharded pools) waits for the ROADMAP item
-"Multi-device", and ``ReplacementConfig`` / ``ReplacementController`` (the
-live versioned swap, which needs ``load_model`` / ``unload_model``) for
-"Multi-model": they raise ``NotImplementedError``.
+:class:`ReplacementController` closes the measure -> optimize -> recompile
+loop on a live pool (DESIGN.md §18): it re-places the observed traffic onto
+free tiles and loads the result as a new model version under the live
+sessions. ``FleetWatchdog`` (sharded pools) waits for the ROADMAP item
+"Multi-device" and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,8 @@ from collections import deque
 import numpy as np
 import torch
 
+from repro_torch.core.compiler import optimize_placement, placement_cost, traffic_matrix
+from repro_torch.core.routing import default_tile_of_cluster, tile_hop_matrix
 from repro_torch.serve.aer import AerSessionPool, DvsSession, SessionResult
 
 __all__ = [
@@ -337,8 +340,9 @@ def migrate_pool(
     readout accumulators untouched (``admit_restored``). Bit-exact when the
     two engines share geometry and ``max_delay``; best-effort re-bucketing
     otherwise (DESIGN.md §15). Quarantined-slot state is deliberately NOT
-    copied: the new engine's lanes start with a clean record. The mechanics
-    live in :meth:`AerSessionPool.clone_onto`.
+    copied: the new engine's lanes start with a clean record. A multi-model
+    pool keeps its whole resident set. The mechanics live in
+    :meth:`AerSessionPool.clone_onto`.
     """
     return pool.clone_onto(new_engine, cfg)
 
@@ -353,22 +357,213 @@ class FleetWatchdog:
         )
 
 
+@dataclasses.dataclass(frozen=True)
 class ReplacementConfig:
-    """Thresholds of profile-guided live re-placement: not ported yet."""
+    """Thresholds and hysteresis for profile-guided re-placement.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ReplacementConfig configures the live versioned swap, which needs "
-            "load_model / unload_model and comes with the ROADMAP item 'Multi-model'"
-        )
+    ``drift_threshold`` is a total-variation distance in ``[0, 1]`` between
+    the observed (cluster, cluster) traffic matrix and the compile-time
+    assumption. ``min_steps`` is the observation a judgement needs, and
+    ``cooldown_steps`` spaces consecutive swaps (the observation window
+    also restarts at every swap).
+    """
+
+    drift_threshold: float = 0.25  # TV distance observed vs assumed -> swap
+    min_steps: int = 16  # observed pool steps before drift is judged
+    cooldown_steps: int = 32  # pool steps between consecutive swaps
+    anneal_steps: int | None = None  # optimize_placement budget (None = auto)
+    seed: int = 0  # annealer seed (the swap is deterministic given the profile)
 
 
 class ReplacementController:
-    """Observed traffic -> new placement -> live swap: not ported yet."""
+    """Closes the loop: observed traffic -> new placement -> live swap.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ReplacementController swaps a new model version in under live "
-            "sessions; it needs load_model / unload_model and comes with the "
-            "ROADMAP item 'Multi-model'"
-        )
+    Watches a pool's :class:`~repro_torch.core.compiler.TrafficProfile` (the
+    pool's engine must be built with ``fabric_options={"per_link_stats":
+    True}``) and, when the observed delivery matrix of :attr:`current`
+    drifts past ``drift_threshold`` from the uniform compile-time
+    assumption, re-runs ``optimize_placement`` on the measured matrix.
+
+    The swap is the bit-exact rung of the §15/§16 ladder: the new placement
+    is loaded as a fresh model version (``name@r1``, ``name@r2``, ...)
+    through :meth:`AerSessionPool.load_model`, on tiles no resident model
+    occupies. Sessions in flight keep serving on the old version (a slot's
+    spikes live in its model's slab), new admissions go to :attr:`current`
+    (:meth:`retarget`), and :meth:`drain_retired` unloads an old version
+    once its sessions are gone. Without enough free tiles the rung is
+    infeasible and :meth:`maybe_replace` raises, pointing at
+    :func:`migrate_pool`.
+    """
+
+    def __init__(self, pool: AerSessionPool, model: str | None = None,
+                 cfg: ReplacementConfig | None = None):
+        self.pool = pool
+        self.cfg = cfg or ReplacementConfig()
+        if pool.profile is None:
+            raise ValueError(
+                "pool has no traffic profile — build the engine with "
+                'fabric_options={"per_link_stats": True}'
+            )
+        if model is None:
+            if len(pool.models) != 1:
+                raise ValueError(
+                    f"multi-model pool: pass model= explicitly (have {list(pool.models)})"
+                )
+            model = next(iter(pool.models))
+        elif model not in pool.models:
+            raise ValueError(f"model {model!r} is not resident (have {list(pool.models)})")
+        self.base = model  # versions are named f"{base}@r{n}"
+        self.current = model  # where new admissions go
+        self.version = 0
+        self.retired: list[str] = []  # old versions awaiting drain
+        self.history: list[dict] = []  # one record per swap
+        self._last_swap_step = -(10**9)
+        self._stamp_effective_placements()
+
+    # -- placement bookkeeping -------------------------------------------
+    def _fabric(self):
+        return self.pool.engine.fabric_backend.fabric
+
+    def _stamp_effective_placements(self) -> None:
+        """Give every resident model an explicit ``tile_of_cluster``.
+
+        ``concat_tables`` composes placements all or none, so the versioned
+        swap needs every resident placed. A model compiled without one runs
+        on its slice of the engine's default placement; stamping that slice
+        changes no routing.
+        """
+        pool = self.pool
+        if all(m.tables.tile_of_cluster is not None for m in pool.models.values()):
+            return
+        engine = pool.engine
+        tiles = engine.fabric_backend.tile_of_cluster
+        if tiles is None:
+            tiles = default_tile_of_cluster(engine.n_clusters, self._fabric())
+        tiles = np.asarray(tiles)
+        for name, cc in pool.models.items():
+            if cc.tables.tile_of_cluster is not None:
+                continue
+            slab = pool.slabs[name]
+            placed = tiles[slab.cluster_lo:slab.cluster_hi].copy()
+            pool.models[name] = dataclasses.replace(
+                cc, tables=dataclasses.replace(cc.tables, tile_of_cluster=placed))
+
+    def _occupied_tiles(self) -> np.ndarray:
+        """Per-tile core occupancy over every resident model."""
+        n_tiles = self._fabric().n_tiles
+        count = np.zeros(n_tiles, dtype=np.int64)
+        for cc in self.pool.models.values():
+            toc = cc.tables.tile_of_cluster
+            if toc is not None:
+                count += np.bincount(np.asarray(toc), minlength=n_tiles)
+        return count
+
+    # -- observation ------------------------------------------------------
+    def observed_matrix(self) -> np.ndarray:
+        """Measured per-step (src, dst) cluster matrix of :attr:`current`,
+        its slab of the pool's profile."""
+        slab = self.pool.slabs[self.current]
+        m = self.pool.profile.matrix()
+        return m[slab.cluster_lo:slab.cluster_hi, slab.cluster_lo:slab.cluster_hi]
+
+    def drift(self) -> float:
+        """TV distance of the observed slab matrix from the compile-time
+        uniform assumption, in ``[0, 1]`` (0.0 until traffic is observed)."""
+        prof = self.pool.profile
+        if prof is None or prof.steps == 0:
+            return 0.0
+        obs = self.observed_matrix()
+        so = float(obs.sum())
+        if so <= 0.0:
+            return 0.0
+        assumed = traffic_matrix(self.pool.models[self.current].tables)
+        sa = float(assumed.sum())
+        if sa <= 0.0:
+            return 0.0
+        return 0.5 * float(np.abs(obs / so - assumed / sa).sum())
+
+    # -- the swap ---------------------------------------------------------
+    def maybe_replace(self, force: bool = False) -> dict | None:
+        """Judge drift and, past threshold, make the versioned swap.
+
+        Returns a report (also appended to :attr:`history`) when a swap
+        happened, else ``None``. ``force=True`` skips the drift and cooldown
+        gates but still needs an observed matrix to optimize on.
+        """
+        cfg = self.cfg
+        pool = self.pool
+        prof = pool.profile
+        if prof is None or prof.steps == 0:
+            return None
+        if not force:
+            if prof.steps < cfg.min_steps:
+                return None
+            if pool.n_steps - self._last_swap_step < cfg.cooldown_steps:
+                return None
+        drift = self.drift()
+        if not force and drift < cfg.drift_threshold:
+            return None
+        obs = self.observed_matrix()
+        if float(obs.sum()) <= 0.0:
+            return None
+
+        fabric = self._fabric()
+        cc = pool.models[self.current]
+        nc = obs.shape[0]
+        free = np.flatnonzero(self._occupied_tiles() == 0)
+        if free.size * fabric.cores_per_tile < nc:
+            raise RuntimeError(
+                f"bit-exact re-placement needs {nc} free cores on unoccupied "
+                f"tiles but only {free.size} tiles "
+                f"({free.size * fabric.cores_per_tile} cores) are free — "
+                "drain retired versions first, or fall back to migrate_pool "
+                "(best-effort rung)"
+            )
+        # seed: pack the free tiles in order, cores_per_tile clusters each
+        init = free[np.arange(nc) // fabric.cores_per_tile]
+        allowed = np.zeros(fabric.n_tiles, dtype=bool)
+        allowed[free] = True
+        placement, info = optimize_placement(obs, fabric, init=init, seed=cfg.seed,
+                                             anneal_steps=cfg.anneal_steps,
+                                             allowed_tiles=allowed)
+        # what the swap buys, measured on the same observed matrix
+        h = tile_hop_matrix(fabric).astype(np.float64)
+        cost_old = placement_cost(obs, h, np.asarray(cc.tables.tile_of_cluster))
+
+        new_name = f"{self.base}@r{self.version + 1}"
+        cc_new = dataclasses.replace(
+            cc, tables=dataclasses.replace(cc.tables, tile_of_cluster=placement))
+        pool.load_model(new_name, cc_new)  # restarts the observation window
+        self.retired.append(self.current)
+        self.current = new_name
+        self.version += 1
+        self._last_swap_step = pool.n_steps
+        report = {
+            "name": new_name,
+            "step": pool.n_steps,
+            "drift": drift,
+            "placement": np.asarray(placement),
+            "cost_observed_old": float(cost_old),
+            "cost_observed_new": float(info["cost_final"]),
+            "mean_hops_old": float(cost_old / obs.sum()),
+            "mean_hops_new": float(info["mean_hops_final"]),
+        }
+        self.history.append(report)
+        return report
+
+    def retarget(self, sess: DvsSession) -> DvsSession:
+        """Point a session not yet admitted at the newest version."""
+        sess.model = self.current
+        return sess
+
+    def drain_retired(self) -> list[str]:
+        """Unload retired versions with no live sessions; returns their names."""
+        pool = self.pool
+        unloaded = []
+        for name in list(self.retired):
+            if any(s is not None and s.model == name for s in pool.slots):
+                continue
+            pool.unload_model(name)
+            self.retired.remove(name)
+            unloaded.append(name)
+        return unloaded

@@ -645,3 +645,47 @@ def test_cuda_rwkv6_3b_two_layers_fp32_chunked_prefill_equals_sequential(cuda):
     torch.testing.assert_close(logits, seq_logits, rtol=1e-3, atol=1e-4)
     for got, want in zip(caches["stack"], seq_caches["stack"]):
         torch.testing.assert_close(got["wkv"], want["wkv"], rtol=1e-3, atol=1e-3)
+
+
+def test_cuda_kernel_info_leaves_larger_launches_runnable(cuda):
+    """``kernel_info`` at a small shared-memory footprint, then a launch of
+    the same kernel instance at a larger one under 48 KB, for each stage-2
+    kernel: the launch runs and equals the plain version bit for bit.
+    ``kernel_info`` used to set the instance's dynamic shared-memory cap to
+    its own footprint, and such a launch (the Table-V pool's
+    ``fused_deliver`` after two models made its queue 3072 slots long)
+    failed with "invalid argument"."""
+    t = compile_poker_cnn().tables
+    src_tag, src_dest, cam_tag, cam_syn = (torch.as_tensor(getattr(t, f), device=cuda)
+                                           for f in ("src_tag", "src_dest", "cam_tag", "cam_syn"))
+    cs, k, n, nc = t.cluster_size, t.k_tags, t.n_neurons, t.n_clusters
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    spikes = (torch.rand((32, n), generator=gen, device=cuda) < 0.1).float()
+    ext = torch.randint(0, 3, (32, nc, k), generator=gen, device=cuda).float() * 8.0
+
+    small, big = fused_ops.work_split(32, 64, cs, k), fused_ops.work_split(32, n, cs, k)
+    assert (small.batch_tile, small.parts) == (big.batch_tile, big.parts)
+    assert small.shared_bytes < big.shared_bytes < 48 * 1024
+    fused_ops.kernel_info(small, k)
+    q = compact_events(spikes, n)
+    tabs = (src_tag, src_dest, cam_tag, cam_syn)
+    assert torch.equal(fused_ops.fused_deliver(q, *tabs, cs, k, external_activity=ext),
+                       fused_ops.fused_deliver_ref(q, *tabs, cs, k, external_activity=ext))
+
+    cam_ops.kernel_info(cam_ops.work_split(32, cs, 64), 64)
+    assert torch.equal(cam_ops.cam_match(ext, cam_tag, cam_syn, cs),
+                       cam_ops.cam_match_ref(ext, cam_tag, cam_syn, cs))
+
+    be = FabricBackend()
+    entries = be.build_entries(t.src_tag, t.src_dest, cs, k, device=cuda)
+    d1 = be.model_for(nc).max_delay + 1
+    fabric_ops.kernel_info(fabric_ops.work_split(32, cs, 64, d1), 64, d1)
+    m = entries.dstk.shape[0]
+    w = (torch.rand((32, m), generator=gen, device=cuda) < 0.1).float()
+    ring = torch.randint(0, 3, (32, d1, nc, k), generator=gen, device=cuda).float()
+    cur = torch.zeros((), dtype=torch.int32, device=cuda)
+    args = (entries.dstk, entries.delay, w, ring, cur, ext, cam_tag, cam_syn, cs, k)
+    got = fabric_ops.fabric_deliver(*args, cluster_start=entries.cluster_start,
+                                    cluster_order=entries.cluster_order)
+    want = fabric_ops.fabric_deliver_ref(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

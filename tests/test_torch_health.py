@@ -257,7 +257,12 @@ def test_unported_parts_name_their_roadmap_items():
         dataclasses.astuple(jhealth.WatchdogConfig())
     with pytest.raises(NotImplementedError, match="'Multi-device'"):
         thealth.FleetWatchdog()
-    with pytest.raises(NotImplementedError, match="'Multi-model'"):
-        thealth.ReplacementConfig()
-    with pytest.raises(NotImplementedError, match="'Multi-model'"):
-        thealth.ReplacementController(None)
+    # the live versioned swap came with 'Multi-model': repro's defaults, and
+    # a pool without a traffic profile is refused as repro refuses it
+    assert dataclasses.astuple(thealth.ReplacementConfig()) == \
+        dataclasses.astuple(jhealth.ReplacementConfig())
+    cc = tcnn.compile_poker_cnn()
+    pool = taer.AerSessionPool(cc, taer.build_poker_engine(cc.tables, device="cpu"),
+                               taer.AerServeConfig(pool_size=1))
+    with pytest.raises(ValueError, match="per_link_stats"):
+        thealth.ReplacementController(pool)
