@@ -92,6 +92,25 @@ Phases, each of which fails the run on any error:
      of K = 512, S = 32, E = 8 (padded -1 words, zero tag columns), at 0%,
      10% and 100% activity, with their device time, split and blocks per
      SM at those shapes;
+  3e. multi-device, on the serving phase's readout and sessions, each
+     serving part with the launch counts set to 0 just before it and read
+     just after, every count against the JAX package's CPU counts (8 fake
+     devices) pinned at the top of the phase
+     (tests/multidevice_phase_reference.py): ShardedSessionPool fleets of
+     1, 2 and 4 shards over the fabric, 64 slots in all, oversubscribed on
+     the card, every session equal to the one-pool fabric leg; 2 shards of
+     32 slots on the slab-retiled tables over 1x1, 1x2 and 2x2 meshes of the
+     card named explicitly (``devices=[cuda:0] * k``), fabric ring and
+     queued, every mesh equal to the 1x1 fleet, and devices=None refusing a
+     2-cell mesh on one card; the 1x1 and 1x2 fleets at link capacity 8;
+     cam_match launched once per mesh cell per fleet step and nothing else;
+     the control plane (8 sessions migrated from a 1x1 onto a 1x2 shard and
+     the 1x1 shard drained; a 4-shard fleet checkpointed under
+     build/chip_smoke/fleet_ckpt, restored onto 2 shards, killed at a shard
+     and recovered under a FleetWatchdog; the admission refusal); the
+     ``sharded`` backend on a 1x2 mesh against the ``cuda`` backend. Each
+     fleet is timed loaded: host ms per fleet step, and the device ms of
+     one from CUDA events around replays queued behind a spin kernel;
   4. LM serving: rwkv6-3b at full width and depth (32 layers, bfloat16
      weights initialised on the card from seed 7) serves 8 prompts of 512
      tokens with 32 new greedy tokens through ``Engine.generate``, which must
@@ -111,8 +130,9 @@ Phases, each of which fails the run on any error:
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` from the serving
 and LM paths, ``launches_compiler_phase`` from phase 3b,
 ``launches_faults_phase`` from phase 3c, ``launches_multimodel_phase`` from
-phase 3d, ``device_ms_two_table_v`` / ``device_ms_table_v_plus_k512`` from
-its part 6), then as the last line
+phase 3d, ``launches_multidevice_phase`` from phase 3e,
+``device_ms_two_table_v`` / ``device_ms_table_v_plus_k512`` from phase 3d's
+part 6), then as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (the plain stage 2
 contracts a one-hot with a float32 matmul). Run from the repository root:
 
@@ -142,7 +162,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.cnn import compile_poker_cnn  # noqa: E402
+from repro_torch.core.cnn import compile_poker_cnn, poker_neuron_params  # noqa: E402
 from repro_torch.core.compiler import (  # noqa: E402
     CompiledArtifact,
     Geometry,
@@ -151,9 +171,10 @@ from repro_torch.core.compiler import (  # noqa: E402
     repair_placement,
     retarget,
 )
-from repro_torch.core.dispatch import FabricBackend  # noqa: E402
+from repro_torch.core.dispatch import FabricBackend, get_backend  # noqa: E402
 from repro_torch.core.event_engine import (  # noqa: E402
     EventEngine,
+    ShardedEventEngine,
     dense_reference_step,
     dense_weights_from_tables,
 )
@@ -167,6 +188,7 @@ from repro_torch.core.two_stage import (  # noqa: E402
     two_stage_deliver,
 )
 from repro_torch.data.pipeline import DvsStreamConfig, DvsStreamSource  # noqa: E402
+from repro_torch.distributed.mesh import make_mesh  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cam_match import ops as cam_ops  # noqa: E402
 from repro_torch.kernels.cam_match.ref import cam_counts  # noqa: E402
@@ -185,11 +207,19 @@ from repro_torch.serve.aer import (  # noqa: E402
 )
 from repro_torch.serve.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.serve.health import (  # noqa: E402
+    FleetWatchdog,
     ReplacementController,
     Watchdog,
     WatchdogConfig,
     migrate_pool,
     serve_resilient,
+)
+from repro_torch.serve.sharded import (  # noqa: E402
+    AdmissionError,
+    ShardConfig,
+    ShardedSessionPool,
+    build_poker_shard_engine,
+    retile_for_slabs,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -2285,6 +2315,467 @@ def phase_multimodel(dev, v1) -> tuple[dict[str, int], dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 3e: multi-device
+# ---------------------------------------------------------------------------
+# What the JAX package gives for this phase's workloads on the CPU with 8
+# fake devices (printed by tests/multidevice_phase_reference.py; the port
+# must reproduce them on the card), on the serving phase's Hebbian readout
+# and sessions: sums over the sessions of accuracy, link drops and decision
+# steps, and the fleet's steps. Part 1: fleets of 1, 2 and 4 shards over the
+# fabric, 64 slots in all. Part 2: 2 shards of 32 slots on the slab-retiled
+# tables over 1x1, 1x2 and 2x2 meshes, fabric ring and queued. Part 3: the
+# 1x1 and 1x2 fleets at link capacity 8 on 32 sessions. Part 4: migration
+# and drain across meshes, checkpoint, restore onto fewer shards, kill and
+# recovery, and the admission refusal.
+MD_PLACEMENT = [0, 0, 4, 1, 1, 1]  # retile_for_slabs(cc, 2)
+MD_FLEETS = {  # part 1, by shard count
+    n: {"sessions": 64, "accuracy": 1.0, "link_dropped": 0, "latency_steps": 1260,
+        "fleet_steps": 22} for n in ("1", "2", "4")}
+MD_MESHES = {  # part 2, by step and mesh
+    **{f"fabric_{m}": {"sessions": 64, "accuracy": 1.0, "link_dropped": 0, "latency_steps": 1238,
+                       "fleet_steps": 22} for m in ("1x1", "1x2", "2x2")},
+    **{f"reference_{m}": {"sessions": 64, "accuracy": 1.0, "link_dropped": 0,
+                          "latency_steps": 1196, "fleet_steps": 21} for m in ("1x1", "1x2", "2x2")},
+}
+MD_CAP8 = {m: {"sessions": 32, "accuracy": 1.0, "link_dropped": 34, "latency_steps": 634,
+               "fleet_steps": 21} for m in ("1x1", "1x2")}  # part 3, by mesh
+MD_CONTROL = {  # part 4
+    "migration": {"migrated": 8, "drained": 8, "sessions": 32, "accuracy": 1.0, "link_dropped": 0,
+                  "latency_steps": 633, "fleet_steps": 21},
+    "restore": {"occupied": 64, "sessions": 64, "accuracy": 1.0, "link_dropped": 0,
+                "latency_steps": 1260, "fleet_steps": 22},
+    "recover": {"held": 16, "recovered": 16, "sessions": 64, "accuracy": 1.0, "link_dropped": 0,
+                "latency_steps": 1260, "fleet_steps": 24, "watchdog_events": 64,
+                "watched_shards": [0, 1, 2, 3]},
+    "admitted_before_refusal": 8,
+}
+MD_SLOTS = 64
+MD_MIGRATE, MD_CKPT_AT, MD_KILL_AFTER, MD_VICTIM = 8, 3, 2, 2
+MULTIDEVICE_PATH_KERNELS = ("cam_match",)
+MD_TIMED_STEPS = 5
+
+
+def _md_summary(results, fleet=None) -> dict:
+    out = _mm_summary(results)
+    if fleet is not None:
+        out["fleet_steps"] = fleet.n_steps
+    return out
+
+
+def _md_drain(fleet, results=None, watchdog=None, events=None) -> list:
+    results = [] if results is None else results
+    while fleet.busy:
+        fleet.step()
+        if watchdog is not None:
+            events.extend(watchdog.observe(fleet))
+        results.extend(fleet.evict_finished())
+    return results
+
+
+def _cells(fleet) -> int:
+    """Mesh cells stepped per fleet step: one cam_match launch each."""
+    return sum(fleet.pools[i].engine.mesh.size for i in fleet.live_shards())
+
+
+def _fleet_device_ms(fleet, reps: int = 3) -> float:
+    """Device time of one fleet step: for each live shard, CUDA events
+    around one replay of its engine step on its current carry (inputs
+    already on the card; a step never updates the carry it is given),
+    queued behind a spin kernel that holds the device until the whole step
+    is enqueued, so the host's launch gaps do not count. The median of
+    ``reps`` per shard, summed over the shards. One shard's step at a time:
+    while the device spins, a launch blocks once about a thousand are
+    queued, so a whole fleet's replays would time the spin instead."""
+    total = 0.0
+    for pool in (fleet.pools[i] for i in fleet.live_shards()):
+        eng, carry = pool.engine, pool.carry
+        inp = torch.as_tensor(pool.gather_inputs(), device=eng.device)
+        eng.step(carry, inp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step(carry, inp)
+        spin_ms = 2 * (time.perf_counter() - t0) * 1e3 + 5
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(int(spin_ms * 2e6))  # cycles at ~2 GHz
+            start.record()
+            t0 = time.perf_counter()
+            eng.step(carry, inp)
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            end.record()
+            end.synchronize()
+            if enqueue_ms > spin_ms:
+                raise AssertionError(f"shard replay: enqueue took {enqueue_ms:.1f} ms, longer "
+                                     f"than the {spin_ms:.1f} ms spin that holds the device")
+            times.append(start.elapsed_time(end))
+        total += statistics.median(times)
+    return total
+
+
+def _shard_step_kernels(fleet, top: int = 5) -> dict:
+    """Where a shard step's device time goes: device ms by kernel name of one
+    replay of the first live shard's engine step under torch.profiler (up
+    to three traces, until one shows device time), the largest ``top``,
+    and the step's device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    pool = fleet.pools[fleet.live_shards()[0]]
+    inp = torch.as_tensor(pool.gather_inputs(), device=pool.engine.device)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pool.engine.step(pool.carry, inp)
+            torch.cuda.synchronize()
+        by: collections.Counter = collections.Counter()
+        ops = 0
+        for evt in prof.events():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                by[evt.name[:80]] += evt.time_range.elapsed_us() / 1e3
+                ops += 1
+        if ops:
+            return {"device_ops": ops, "top_device_ms": dict(by.most_common(top))}
+    return {"device_ops": 0, "top_device_ms": {}}
+
+
+def _md_timing(make_fleet, suits) -> dict:
+    """A fresh fleet loaded with the 64 sessions: host ms per fleet step over
+    MD_TIMED_STEPS steps (after 3), and the device ms of one step."""
+    fleet = make_fleet()
+    for s in _sessions(suits):
+        fleet.submit(s)
+    for _ in range(3):
+        fleet.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MD_TIMED_STEPS):
+        fleet.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / MD_TIMED_STEPS
+    device = _fleet_device_ms(fleet)
+    return {"wall_ms_per_fleet_step": wall, "device_ms_per_fleet_step": device,
+            "device_idle_share": max(0.0, 1.0 - device / wall),
+            "cells_per_fleet_step": _cells(fleet), "shard_step": _shard_step_kernels(fleet)}
+
+
+def _md_leg(what, make_fleet, sessions, want_summary, launched, suits=None) -> tuple[list, dict]:
+    """Serve ``sessions`` on a new fleet with the launch counts set to 0 just
+    before and read just after: cam_match once per mesh cell per fleet step,
+    nothing else; the summary must be the JAX package's. With ``suits``, a
+    second fleet is timed loaded (:func:`_md_timing`)."""
+    fleet = make_fleet()
+    t0 = time.perf_counter()
+    results, counts = _counted(lambda: fleet.serve(sessions))
+    wall = time.perf_counter() - t0
+    _expect_launches(counts, {"cam_match": _cells(fleet) * fleet.n_steps}, what)
+    launched.update(counts)
+    got = _md_summary(results, fleet)
+    _pinned(got, want_summary, what)
+    out = {**got, "serve_wall_ms_per_fleet_step": wall * 1e3 / fleet.n_steps,
+           "sessions_per_s": len(results) / wall, "launches": counts}
+    if suits is not None:
+        out.update(_md_timing(make_fleet, suits))
+    log(f"multidevice[{what}]: {len(results)} sessions, the JAX package's counts "
+        f"({got['link_dropped']} link drops, {got['fleet_steps']} fleet steps), "
+        f"{out['sessions_per_s']:.2f} sessions/s; launches {counts}"
+        + ("" if suits is None else
+           f"; loaded fleet step {out['wall_ms_per_fleet_step']:.3f} ms wall, "
+           f"{out['device_ms_per_fleet_step']:.4f} ms on the device over "
+           f"{out['cells_per_fleet_step']} cells, idle share {out['device_idle_share']:.3f}; "
+           f"one shard step: {out['shard_step']['device_ops']} device ops, largest "
+           + ", ".join(f"{name} {ms:.4f}" for name, ms in
+                       list(out["shard_step"]["top_device_ms"].items())[:3]) + " ms"))
+    return results, out
+
+
+def check_md_fleets(dev, v1, launched) -> dict:
+    """Part 1: fleets of 1, 2 and 4 shards over the fabric, 64 slots in all,
+    oversubscribed on the card (every shard's 1x1 mesh on it). Every
+    session equals the serving phase's one-pool fabric leg."""
+    cc, suits = v1["cc"], v1["suits"]
+    warm = ShardedSessionPool(cc, AerServeConfig(pool_size=2), ShardConfig(backend="fabric"))
+    warm.serve(_sessions(suits)[:2])  # first-use allocations
+    out = {}
+    for n in (1, 2, 4):
+        def make(n=n):
+            return ShardedSessionPool(cc, AerServeConfig(pool_size=MD_SLOTS // n),
+                                      ShardConfig(n_shards=n, backend="fabric"))
+
+        results, out[str(n)] = _md_leg(f"fleet of {n}", make, _sessions(suits),
+                                       MD_FLEETS[str(n)], launched, suits)
+        if _key(results) != v1["results"]["fabric"]:
+            raise AssertionError(f"fleet of {n}: sessions differ from the one-pool fabric leg")
+    return out
+
+
+def check_md_meshes(dev, v1, rc, launched) -> tuple[dict, dict]:
+    """Part 2: 2 shards of 32 slots on the retiled tables over 1x1, 1x2 and
+    2x2 meshes of the one card named explicitly (``devices=[cuda:0] * k``),
+    on the fabric ring and on the queued step. Every mesh's sessions equal
+    the 1x1 fleet's (the queued ones also the serving phase's reference
+    leg); on one card ``devices=None`` refuses a mesh of 2 cells."""
+    suits = v1["suits"]
+    out, base = {}, {}
+    for backend in ("fabric", "reference"):
+        for bd, cd in ((1, 1), (1, 2), (2, 2)):
+            label = f"{backend}_{bd}x{cd}"
+
+            def make(bd=bd, cd=cd, backend=backend):
+                return ShardedSessionPool(
+                    rc, AerServeConfig(pool_size=MD_SLOTS // 2),
+                    ShardConfig(n_shards=2, backend=backend, cluster_devices=cd,
+                                batch_devices=bd), devices=[dev] * (bd * cd))
+
+            results, out[label] = _md_leg(f"2 shards {label}", make, _sessions(suits),
+                                          MD_MESHES[label], launched, suits)
+            if (bd, cd) == (1, 1):
+                base[backend] = _key(results)
+            elif _key(results) != base[backend]:
+                raise AssertionError(f"{label}: sessions differ from the 1x1 fleet's")
+    if base["reference"] != v1["results"]["reference"]:
+        raise AssertionError("queued fleet on the retiled tables: sessions differ from the "
+                             "serving phase's reference leg")
+    if torch.cuda.device_count() == 1:
+        for make, text in (
+                (lambda: ShardedSessionPool(rc, AerServeConfig(pool_size=2),
+                                            ShardConfig(cluster_devices=2)),
+                 "fleet needs at least 2 devices per shard, have 1"),
+                (lambda: build_poker_shard_engine(rc.tables, cluster_devices=2),
+                 "mesh needs 2 devices, only 1 visible")):
+            try:
+                make()
+            except ValueError as e:
+                if not str(e).startswith(text):
+                    raise
+            else:
+                raise AssertionError(f"devices=None on one card did not refuse: {text}")
+        log("multidevice: on one card, devices=None refuses a 2-cell mesh (fleet and engine)")
+    return out, base
+
+
+def check_md_cap8(dev, v1, rc, launched) -> dict:
+    """Part 3: link capacity 8 on 1x1 and 1x2 meshes, the first 32 sessions:
+    link drops are the JAX package's, and equal on both meshes."""
+    suits = v1["suits"]
+    out, keys = {}, {}
+    for cd in (1, 2):
+        def factory(i, devices, cd=cd):
+            return ShardedEventEngine(
+                rc.tables, poker_neuron_params(), fabric=Fabric(),
+                fabric_options={"link_capacity": 8}, queue_capacity=rc.tables.n_neurons,
+                devices=devices, cluster_devices=cd)
+
+        def make(cd=cd, factory=factory):
+            return ShardedSessionPool(rc, AerServeConfig(pool_size=POOL // 2),
+                                      ShardConfig(n_shards=2, backend="fabric",
+                                                  cluster_devices=cd),
+                                      devices=[dev] * cd, engine_factory=factory)
+
+        results, out[f"1x{cd}"] = _md_leg(f"link capacity 8, 1x{cd}", make,
+                                          _sessions(suits)[:POOL], MD_CAP8[f"1x{cd}"], launched)
+        keys[cd] = _key(results)
+    if keys[1] != keys[2] or out["1x2"]["link_dropped"] == 0:
+        raise AssertionError("link capacity 8: the 1x2 fleet differs from the 1x1, or no drops")
+    return out
+
+
+def check_md_control(dev, v1, rc, base, launched) -> dict:
+    """Part 4, the control plane. Migration: 8 sessions moved mid-flight
+    from a 1x1 shard onto a 1x2 shard (each move timed), then the 1x1 shard
+    drained; every session equals the 1x1 fleet of part 2. A fabric fleet of
+    4 shards of 32 slots (16 sessions each) checkpointed after 3 steps under build/chip_smoke/fleet_ckpt (save
+    timed), restored onto 2 shards (timed; the lost shards' sessions into the
+    survivors' free slots) and served; the original killed
+    at shard 2 two steps later and recovered (timed) with a fleet watchdog
+    scanning every live shard; every session equals the one-pool fabric leg.
+    A fleet of 2 x 2 slots with queue depth 2 refuses its ninth session."""
+    cc, suits = v1["cc"], v1["suits"]
+    out = {}
+
+    def factory(i, devices):
+        return build_poker_shard_engine(rc.tables, "fabric", cluster_devices=1 + i,
+                                        devices=[dev] * (1 + i))
+
+    fleet = ShardedSessionPool(rc, AerServeConfig(pool_size=POOL),
+                               ShardConfig(n_shards=2, backend="fabric"), engine_factory=factory)
+    migrate_ms = []
+
+    def migration():
+        for s in _sessions(suits)[:POOL]:
+            fleet.submit(s)
+        for _ in range(4):
+            fleet.step()
+        results = fleet.evict_finished()
+        moved = [s.session_id for s in fleet.pools[0].slots if s is not None][:MD_MIGRATE]
+        for sid in moved:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fleet.migrate(sid, 1)
+            torch.cuda.synchronize()
+            migrate_ms.append((time.perf_counter() - t0) * 1e3)
+        drained = fleet.drain_shard(0)
+        return len(moved), drained, _md_drain(fleet, results)
+
+    (moved, drained, results), counts = _counted(migration)
+    _expect_launches(counts, {"cam_match": 3 * fleet.n_steps}, "migration fleet")
+    launched.update(counts)
+    got = {"migrated": moved, "drained": drained, **_md_summary(results, fleet)}
+    _pinned(got, MD_CONTROL["migration"], "migration and drain")
+    if _key(results) != [k for k in base["fabric"] if k[0] < POOL]:
+        raise AssertionError("migrated sessions differ from the 1x1 fleet's")
+    out["migration"] = {**got, "migrate_ms": migrate_ms, "launches": counts}
+    log(f"multidevice[migration]: {moved} sessions moved 1x1 -> 1x2 mid-flight in "
+        f"{statistics.median(migrate_ms):.3f} ms each (median), {drained} drained, every session "
+        "equal to the 1x1 fleet's")
+
+    ckpt_dir = OUT_DIR / "fleet_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    big = ShardedSessionPool(cc, AerServeConfig(pool_size=MD_SLOTS // 2),
+                             ShardConfig(n_shards=4, backend="fabric"))
+    wd = FleetWatchdog()
+    events: list = []
+    ck = Checkpointer(str(ckpt_dir), keep=2)
+
+    def until_checkpoint():
+        for s in _sessions(suits):
+            big.submit(s)
+        for _ in range(MD_CKPT_AT):
+            big.step()
+            events.extend(wd.observe(big))
+        finished = big.evict_finished()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        big.checkpoint(ck, blocking=True)
+        return finished, (time.perf_counter() - t0) * 1e3
+
+    (finished, save_ms), counts = _counted(until_checkpoint)
+    _expect_launches(counts, {"cam_match": 4 * MD_CKPT_AT}, "fleet before its checkpoint")
+    launched.update(counts)
+    t0 = time.perf_counter()
+    small = ShardedSessionPool.restore(cc, AerServeConfig(pool_size=MD_SLOTS // 2),
+                                       ShardConfig(n_shards=2, backend="fabric"), ck)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    occupied = sum(o for o, _ in small.occupancy().values())
+    results, counts = _counted(lambda: _md_drain(small, list(finished)))
+    _expect_launches(counts, {"cam_match": 2 * (small.n_steps - MD_CKPT_AT)}, "restored fleet")
+    launched.update(counts)
+    got = {"occupied": occupied, **_md_summary(results, small)}
+    _pinned(got, MD_CONTROL["restore"], "restore onto 2 shards")
+    if _key(results) != v1["results"]["fabric"]:
+        raise AssertionError("restored fleet: sessions differ from the one-pool fabric leg")
+    out["restore"] = {**got, "save_ms": save_ms, "restore_ms": restore_ms, "launches": counts}
+
+    def kill_and_recover():
+        for _ in range(MD_KILL_AFTER):
+            big.step()
+            events.extend(wd.observe(big))
+        held = sum(s is not None for s in big.pools[MD_VICTIM].slots)
+        big.kill_shard(MD_VICTIM)
+        t0 = time.perf_counter()
+        recovered = big.recover_shard(ck, MD_VICTIM)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return held, recovered, ms, _md_drain(big, list(finished), wd, events)
+
+    (held, recovered, recover_ms, results), counts = _counted(kill_and_recover)
+    after = big.n_steps - MD_CKPT_AT - MD_KILL_AFTER
+    _expect_launches(counts, {"cam_match": 4 * MD_KILL_AFTER + 3 * after}, "killed fleet")
+    launched.update(counts)
+    got = {"held": held, "recovered": recovered, **_md_summary(results, big),
+           "watchdog_events": len(events), "watched_shards": sorted(wd._per_shard)}
+    _pinned(got, MD_CONTROL["recover"], "kill and recover")
+    if _key(results) != v1["results"]["fabric"]:
+        raise AssertionError("recovered fleet: sessions differ from the one-pool fabric leg")
+    out["recover"] = {**got, "recover_ms": recover_ms, "launches": counts}
+    log(f"multidevice[checkpoint]: 4 shards x 32 slots saved in {save_ms:.2f} ms, restored onto "
+        f"2 shards of 32 in {restore_ms:.2f} ms ({occupied} sessions in flight); shard "
+        f"{MD_VICTIM} killed with {held} sessions, {recovered} recovered in {recover_ms:.2f} ms; "
+        f"{len(events)} watchdog events over shards {sorted(wd._per_shard)}; every session equal "
+        "to the one-pool fabric leg")
+
+    tiny = ShardedSessionPool(cc, AerServeConfig(pool_size=2), ShardConfig(queue_depth=2))
+    admitted = 0
+    try:
+        for s in _sessions(suits):
+            tiny.submit(s)
+            admitted += 1
+    except AdmissionError:
+        pass
+    if admitted != MD_CONTROL["admitted_before_refusal"]:
+        raise AssertionError(f"admission: {admitted} sessions before the refusal")
+    out["admitted_before_refusal"] = admitted
+    return out
+
+
+def check_md_backend(dev, v1) -> dict:
+    """Part 5: the ``sharded`` backend on a 1x2 mesh of the card against the
+    ``cuda`` backend on the serving phase's tables, B = 32, a lossless
+    queue, at 0%, 10% and 100% activity: drive and drops equal, and
+    cam_match launched once per mesh cell per call (not counted for the
+    phase: a comparison)."""
+    cc = v1["cc"]
+    t = build_poker_engine(cc.tables, "cuda", device=dev).tables
+    args = (t.src_tag, t.src_dest, t.cam_tag, t.cam_syn, cc.tables.cluster_size,
+            cc.tables.k_tags)
+    sharded = get_backend("sharded", mesh=make_mesh((1, 2), devices=[dev, dev]))
+    single = get_backend("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n, nc, k = cc.tables.n_neurons, cc.tables.n_clusters, cc.tables.k_tags
+    out = {}
+    for act in (0.0, 0.1, 1.0):
+        spikes = (torch.rand((POOL, n), generator=gen, device=dev) < act).float()
+        ext = torch.randint(0, 3, (POOL, nc, k), generator=gen, device=dev).float() * 8.0
+        before = cam_ops.cam_match.launches
+        got, got_st = sharded.deliver(spikes, *args, external_activity=ext, queue_capacity=n,
+                                      with_stats=True)
+        torch.cuda.synchronize()
+        calls = cam_ops.cam_match.launches - before
+        want, want_st = single.deliver(spikes, *args, external_activity=ext, queue_capacity=n,
+                                       with_stats=True)
+        if not torch.equal(got, want) or not torch.equal(got_st.dropped, want_st.dropped):
+            raise AssertionError(f"sharded backend at {act:.0%}: drive or drops differ from cuda")
+        if calls != 2:
+            raise AssertionError(f"sharded backend: {calls} cam_match launches for 2 cells")
+        out[str(act)] = {"drive_sum": float(got.sum()), "dropped": int(got_st.dropped.sum())}
+    log("multidevice[sharded backend]: 1x2 mesh equals the cuda backend at 0%, 10% and 100% "
+        "activity (drive bit-exact, drops), 2 cam_match launches per call")
+    return out
+
+
+def phase_multidevice(dev, v1) -> dict[str, int]:
+    """Multi-device: each serving part sets the launch counts to 0 just
+    before it and reads them just after; their sum must launch cam_match,
+    and nothing else."""
+    count = torch.cuda.device_count()
+    log(f"multidevice: {count} visible device(s)"
+        + ("; disjoint device sets and peer copies are not exercised: every mesh cell and "
+           "every shard runs on cuda:0" if count == 1 else ""))
+    rc = retile_for_slabs(v1["cc"], 2)
+    if np.asarray(rc.tables.tile_of_cluster).tolist() != MD_PLACEMENT:
+        raise AssertionError(f"retiled placement {rc.tables.tile_of_cluster}, the JAX package's "
+                             f"{MD_PLACEMENT}")
+    launched: collections.Counter = collections.Counter()
+    t0 = time.perf_counter()
+    out = {"device_count": count, "fleets": check_md_fleets(dev, v1, launched)}
+    out["meshes"], base = check_md_meshes(dev, v1, rc, launched)
+    out["cap8"] = check_md_cap8(dev, v1, rc, launched)
+    out["control"] = check_md_control(dev, v1, rc, base, launched)
+    out["backend"] = check_md_backend(dev, v1)
+    out["seconds"] = time.perf_counter() - t0
+    stray = {name: n for name, n in launched.items()
+             if n and name not in MULTIDEVICE_PATH_KERNELS}
+    missing = [name for name in MULTIDEVICE_PATH_KERNELS if launched[name] == 0]
+    if missing or stray:
+        raise AssertionError(f"multidevice phase: {missing} never launched, or {stray} launched")
+    out["launches"] = dict(launched)
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "chip_smoke_multidevice.json").write_text(json.dumps(out, indent=1, default=str))
+    log(f"multidevice phase: launches {dict(launched)} in {out['seconds']:.1f} s")
+    return dict(launched)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: LM serving (rwkv6-3b)
 # ---------------------------------------------------------------------------
 STREAM_TOL = 2.0**-5  # bfloat16 residual stream: 4 ulps at its largest element
@@ -2536,6 +3027,7 @@ def main() -> None:
     compiler_launches = phase_compiler(dev, v1)
     faults_launches = phase_faults(dev, v1)
     multimodel_launches, mm_kernels = phase_multimodel(dev, v1)
+    multidevice_launches = phase_multidevice(dev, v1)
     launches.update(phase_lm(dev))
     if set(launches) != set(kernels):
         raise AssertionError(f"serving legs launched {sorted(launches)}, kernels {sorted(kernels)}")
@@ -2546,6 +3038,7 @@ def main() -> None:
         kernels[name]["launches_compiler_phase"] = compiler_launches.get(name, 0)
         kernels[name]["launches_faults_phase"] = faults_launches.get(name, 0)
         kernels[name]["launches_multimodel_phase"] = multimodel_launches.get(name, 0)
+        kernels[name]["launches_multidevice_phase"] = multidevice_launches.get(name, 0)
         for shape, at in mm_kernels.items():
             if name in at:
                 kernels[name][f"device_ms_{shape}"] = at[name]["device_ms"]

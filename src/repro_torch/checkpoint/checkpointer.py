@@ -22,7 +22,9 @@ pytree paths are (``['carry'][0].v``).
 * custom dtypes: bfloat16 and the float8 types are stored as same-width
   unsigned integers, with the true dtype name in the manifest.
 * restore: each leaf's shape is checked against the prototype's, and a
-  tensor leaf comes back on the prototype's device.
+  tensor leaf comes back on the prototype's device, or on the mesh a
+  matching tree of ``shardings``
+  (:class:`~repro_torch.distributed.mesh.NamedSharding`) names.
 * retention: the ``keep`` newest checkpoints are kept.
 """
 
@@ -36,6 +38,8 @@ import threading
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.mesh import NamedSharding, tree_map
 
 __all__ = ["Checkpointer"]
 
@@ -205,9 +209,12 @@ class Checkpointer:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, step: int, like):
+    def restore(self, step: int, like, shardings=None):
         """The tree saved at ``step``, in the structure of the prototype
-        ``like``; tensor leaves go to the prototype leaf's device."""
+        ``like``; tensor leaves go to the prototype leaf's device. With
+        ``shardings`` (a tree matching ``like`` of ``NamedSharding`` s)
+        every leaf comes back as a tensor placed on its mesh instead:
+        reshard on load, as ``repro``'s ``shardings`` does."""
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -232,4 +239,8 @@ class Checkpointer:
                 )
             a = np.load(os.path.join(path, e["file"]))
             restored.append(_from_stored(a, e["dtype"], p))
-        return _unflatten(like, iter(restored))
+        tree = _unflatten(like, iter(restored))
+        if shardings is None:
+            return tree
+        return tree_map(lambda sharding, leaf: sharding.place(leaf), shardings, tree,
+                        is_leaf=lambda s: isinstance(s, NamedSharding))

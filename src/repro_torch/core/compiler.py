@@ -489,8 +489,8 @@ def device_slab_placement(
 ) -> tuple[np.ndarray, dict]:
     """Traffic-aware placement constrained to ``n_slabs`` device slabs.
 
-    The reference's ``EventEngine.make_sharded_step`` (and its
-    ``ShardedEventEngine``, not ported yet) maps ``n_slabs`` equal
+    ``EventEngine.make_sharded_step`` (and its ``ShardedEventEngine``)
+    maps ``n_slabs`` equal
     contiguous cluster slabs onto devices, which requires
     every tile's clusters to live inside one slab. The hierarchical linear
     default placement packs clusters densely and often violates that (the

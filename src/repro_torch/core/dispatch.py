@@ -10,6 +10,11 @@ per-neuron synaptic drive ``[..., N, 4]``:
   * ``fused``     — stage-1 scatter AND stage-2 CAM match in the
                     hand-written ``fused_deliver`` CUDA kernel; always
                     event-queued
+  * ``sharded``   — delivery over a single-process 2-D device mesh
+                    (batch over ``data``, clusters over ``model``): each
+                    cell's stage-1 partial activity is reduce-scattered to
+                    the owning cluster slab (the R2/R3 hop) and each cell's
+                    stage 2 runs the ``cam_match`` kernel
   * ``fabric``    — latency/bandwidth-aware delivery through the executable
                     R1/R2/R3 model (DESIGN.md §11): tile binning, per-link
                     FIFOs, delay lines, Table II-IV stats; its time-wheel
@@ -18,7 +23,8 @@ per-neuron synaptic drive ``[..., N, 4]``:
 On CPU tensors the kernel backends run their kernels' plain versions.
 ``queue_capacity`` compacts active spikes into a fixed-capacity AER queue
 before stage 1; ``with_stats=True`` also returns a :class:`DeliveryStats`.
-Backends are selected by name through :func:`get_backend`;
+Backends are selected by name through :func:`get_backend` (keyword
+options construct the named backend);
 :func:`backend_deliver` is the signature-tolerant ``deliver`` call of
 ``two_stage_deliver``.
 
@@ -43,12 +49,14 @@ import torch
 from repro_torch.core import routing
 from repro_torch.core.device import resolve_device
 from repro_torch.core.two_stage import (
+    N_SYN_TYPES,
     compact_events,
     stage1_route,
     stage1_route_events,
     stage1_route_events_fabric,
     stage2_cam_match,
 )
+from repro_torch.distributed.mesh import DeviceMesh, NamedSharding, P, psum, psum_scatter
 from repro_torch.kernels.cam_match import ops as cam_ops
 from repro_torch.kernels.fused_deliver import ops as fused_ops
 
@@ -58,6 +66,7 @@ __all__ = [
     "ReferenceBackend",
     "CudaBackend",
     "FusedBackend",
+    "ShardedBackend",
     "FabricBackend",
     "AutotuneDecision",
     "advance_inflight",
@@ -67,6 +76,7 @@ __all__ = [
     "register_backend",
     "get_backend",
     "served_backend",
+    "sharded_local_deliver",
     "available_backends",
 ]
 
@@ -109,9 +119,15 @@ def available_backends() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-def get_backend(spec: "str | DispatchBackend | None" = "reference") -> "DispatchBackend":
-    """Resolve a backend by name or pass an instance through unchanged."""
+def get_backend(spec: "str | DispatchBackend | None" = "reference", **options) -> "DispatchBackend":
+    """Resolve a backend by name (constructing it with ``options``) or pass
+    an already-constructed instance through unchanged."""
     if isinstance(spec, DispatchBackend):
+        if options:
+            raise ValueError(
+                f"backend options {sorted(options)} ignored: {spec.name!r} was "
+                "passed as an instance — configure it at construction instead"
+            )
         return spec
     if spec is None:
         spec = "reference"
@@ -121,7 +137,7 @@ def get_backend(spec: "str | DispatchBackend | None" = "reference") -> "Dispatch
         raise ValueError(
             f"unknown dispatch backend {spec!r}; available: {available_backends()}"
         ) from None
-    return cls()
+    return cls(**options)
 
 
 @functools.lru_cache(maxsize=None)
@@ -610,6 +626,146 @@ class FabricBackend(DispatchBackend):
         )
         if with_stats:
             return drive, stats
+        return drive
+
+
+def sharded_local_deliver(
+    spikes: list[torch.Tensor],  # per cell: [..., N_local] the cell's neuron slab
+    src_tag: list[torch.Tensor],  # per cell: [N_local, E]
+    src_dest: list[torch.Tensor],
+    cam_tag: list[torch.Tensor],  # per cell: [N_local, S]
+    cam_syn: list[torch.Tensor],
+    cluster_size: int,
+    n_clusters: int,  # GLOBAL cluster count (stage 1 targets any cluster)
+    k_tags: int,
+    external_activity: list[torch.Tensor] | None = None,  # per cell: [..., nc_local, K]
+    queue_capacity: int | None = None,
+    syn_onehot=None,
+    with_stats: bool = False,
+):
+    """Delivery of one cluster-axis group of mesh cells, shared by
+    :class:`ShardedBackend` and ``EventEngine.make_sharded_step``.
+
+    Every argument that varies by cell is a list over the group's cells in
+    axis order, each entry on its cell's device. Each cell scatters its
+    sources into a partial activity matrix over ALL clusters; the
+    reduce-scatter (:func:`~repro_torch.distributed.mesh.psum_scatter`)
+    hands each cell its cluster slab (the R2/R3 point-to-point hop); stage 2
+    is local, on the ``cam_match`` kernel (its plain version on CPU
+    tensors), which reads the CAM types directly, so ``syn_onehot`` is not
+    used.
+
+    With ``queue_capacity`` each cell compacts its own slab's spikes (one
+    output FIFO per core). Returns the per-cell drive list, and with
+    ``with_stats=True`` also the per-cell ``dropped`` list, summed over the
+    group (events lost fabric-wide, on every cell).
+    """
+    partial, dropped = zip(*(
+        _stage1_activity(s, t, d, n_clusters, k_tags, queue_capacity)
+        for s, t, d in zip(spikes, src_tag, src_dest, strict=True)
+    ))
+    local = psum_scatter(list(partial), dim=-2)
+    drives = []
+    for j, a in enumerate(local):
+        if external_activity is not None:
+            a = a + external_activity[j]
+        # the reduce-scattered slab is a middle-dim slice (strided when
+        # batched) and the kernel reads one dense block
+        drives.append(cam_ops.cam_match(a.contiguous(), cam_tag[j], cam_syn[j], cluster_size))
+    if with_stats:
+        return drives, psum(list(dropped))
+    return drives
+
+
+@register_backend("sharded")
+class ShardedBackend(DispatchBackend):
+    """Full delivery over a 2-D (batch, cluster) :class:`DeviceMesh`.
+
+    ``batch_axis`` shards event streams (data parallel, no communication),
+    ``cluster_axis`` shards clusters (model parallel: stage-1 partial
+    activity is reduce-scattered to the slab owner, DESIGN.md §2), and
+    every cell's stage 2 runs the ``cam_match`` kernel. Without ``mesh``
+    the backend runs on a 1x1 mesh of the device its spikes lie on, as
+    ``repro``'s 1x1 default mesh does on its default device. Drive and
+    drops come back on the spikes' device.
+    """
+
+    def __init__(
+        self,
+        mesh: DeviceMesh | None = None,
+        batch_axis: str = "data",
+        cluster_axis: str = "model",
+    ):
+        if mesh is not None and {batch_axis, cluster_axis} - set(mesh.axis_names):
+            raise ValueError(f"mesh axes {mesh.axis_names} lack {batch_axis!r} or "
+                             f"{cluster_axis!r}")
+        self.mesh = mesh
+        self.batch_axis = batch_axis
+        self.cluster_axis = cluster_axis
+
+    def cam_match(self, activity, cam_tag, cam_syn, cluster_size, syn_onehot=None):
+        # stage 2 alone is embarrassingly parallel; the communication lives
+        # in deliver()
+        return cam_ops.cam_match(activity.contiguous(), cam_tag, cam_syn, cluster_size)
+
+    def deliver(
+        self,
+        spikes,
+        src_tag,
+        src_dest,
+        cam_tag,
+        cam_syn,
+        cluster_size,
+        k_tags,
+        external_activity=None,
+        queue_capacity=None,
+        syn_onehot=None,
+        with_stats=False,
+    ):
+        dev = spikes.device
+        mesh = self.mesh or DeviceMesh([[dev]], (self.batch_axis, self.cluster_axis))
+        # normalize any leading batch shape (incl. none) to one flat B
+        batch_shape = spikes.shape[:-1]
+        n = spikes.shape[-1]
+        spikes = spikes.reshape(-1, n)
+        b = spikes.shape[0]
+        n_clusters = n // cluster_size
+        ba, ca = self.batch_axis, self.cluster_axis
+        n_cl_dev = mesh.shape[ca]
+        if n_clusters % n_cl_dev or b % mesh.shape[ba]:
+            raise ValueError(
+                f"{n_clusters} clusters x batch {b} do not divide over the "
+                f"{mesh.shape[ba]} x {n_cl_dev} mesh"
+            )
+        if external_activity is None:
+            external_activity = torch.zeros((b, n_clusters, k_tags), dtype=spikes.dtype,
+                                            device=dev)
+        else:  # broadcast a shared (unbatched) stimulus like the other backends
+            external_activity = torch.broadcast_to(
+                external_activity, (*batch_shape, n_clusters, k_tags)
+            ).reshape(b, n_clusters, k_tags)
+        # per-cell FIFO: each cluster shard compacts its slab of sources
+        local_capacity = queue_capacity
+        if local_capacity is not None:
+            local_capacity = max(1, -(-local_capacity // n_cl_dev))
+        by_cell = NamedSharding(mesh, P(ba, ca))
+        rows = NamedSharding(mesh, P(ca))
+        spk, ext = by_cell.shard(spikes), by_cell.shard(external_activity)
+        tabs = [rows.shard(t) for t in (src_tag, src_dest, cam_tag, cam_syn)]
+        drive_parts, drop_parts = {}, {}
+        for group in mesh.groups(ca):
+            drives, drops = sharded_local_deliver(
+                [spk[c] for c in group], *([t[c] for c in group] for t in tabs),
+                cluster_size, n_clusters, k_tags,
+                external_activity=[ext[c] for c in group],
+                queue_capacity=local_capacity, with_stats=True,
+            )
+            drive_parts.update(zip(group, drives))
+            drop_parts.update(zip(group, drops))
+        drive = by_cell.unshard(drive_parts, dev).reshape(*batch_shape, n, N_SYN_TYPES)
+        if with_stats:
+            dropped = NamedSharding(mesh, P(ba)).unshard(drop_parts, dev)
+            return drive, DeliveryStats(dropped=dropped.reshape(batch_shape))
         return drive
 
 

@@ -28,6 +28,16 @@ fabric delay line included) between engines as a host-side
 :class:`SlotCarry`. A fabric built with ``faults`` (a ``FaultSpec``) severs
 the same SRAM entries on the ring and the roll path.
 
+Multi-device (DESIGN.md §2, §17): :meth:`EventEngine.make_sharded_step`
+runs the step over a single-process :class:`~repro_torch.distributed.mesh.DeviceMesh`
+(clusters over one axis, batch slots over another): each cell routes its
+own neuron slab, the stage-1 partial activity (or, on the fabric, the
+routed delay-line buffer) is reduce-scattered to the cluster slabs' owners,
+and each cell's stage 2 runs the ``cam_match`` kernel.
+:class:`ShardedEventEngine` is an engine whose ``step`` runs that way over
+its own ``("data", "model")`` mesh, the carry staying whole on the mesh's
+first device.
+
 Multi-model residency (DESIGN.md §16): :class:`ModelRegistry` lays several
 compiled networks out as disjoint slabs of one table, and one engine serves
 them all; on the fabric ring its entry table is built slab by slab
@@ -52,17 +62,38 @@ from repro_torch.core.dispatch import (
     DeliveryStats,
     DispatchBackend,
     FabricBackend,
+    advance_inflight,
     autotune_backend,
     get_backend,
     served_backend,
+    sharded_local_deliver,
 )
 from repro_torch.core.neuron import NeuronParams, NeuronState
 from repro_torch.core.routing import Fabric, default_tile_of_cluster
 from repro_torch.core.tags import RoutingTables, TableSlab, concat_tables
-from repro_torch.core.two_stage import N_SYN_TYPES, precompute_syn_onehot
+from repro_torch.core.two_stage import (
+    N_SYN_TYPES,
+    compact_events,
+    precompute_syn_onehot,
+    stage1_route_events_fabric,
+)
+from repro_torch.distributed.mesh import (
+    AXES,
+    DeviceMesh,
+    NamedSharding,
+    P,
+    make_mesh,
+    named,
+    psum,
+    psum_scatter,
+    tree_map,
+)
+from repro_torch.kernels.cam_match import ops as cam_ops
+from repro_torch.kernels.fabric_deliver.ref import _pop_cursor_slot
 
 __all__ = [
     "EventEngine",
+    "ShardedEventEngine",
     "DeliveryStats",
     "SlotCarry",
     "ModelRegistry",
@@ -113,7 +144,8 @@ class EventEngine:
     or a configured :class:`~repro_torch.core.dispatch.FabricBackend`) turns
     on fabric mode, which takes precedence over ``backend`` for delivery and
     always returns stats; ``fabric_options`` configure a backend built from a
-    ``Fabric``. The engine runs on ``device`` (CUDA unless the caller asks
+    ``Fabric``, as ``backend_options`` configure the backend ``backend``
+    names. The engine runs on ``device`` (CUDA unless the caller asks
     for the CPU). ``entry_slabs`` (each resident model's ``(src_tag,
     src_dest)``, back to back) builds the fabric ring's entry table slab by
     slab; it must span the tables' neurons and applies to the ring only.
@@ -130,6 +162,7 @@ class EventEngine:
         fabric_options: dict | None = None,
         autotune: dict | None = None,
         entry_slabs=None,  # several resident models on the ring: [(src_tag_m, src_dest_m)]
+        backend_options: dict | None = None,
     ):
         if not isinstance(tables, RoutingTables) and hasattr(tables, "tables"):
             tables = tables.tables  # CompileResult / CompiledArtifact
@@ -148,7 +181,7 @@ class EventEngine:
             backend = self._autotune(tables, fabric, autotune)
         elif autotune:
             raise ValueError("autotune options require backend='auto'")
-        self.backend = get_backend(backend)
+        self.backend = get_backend(backend, **(backend_options or {}))
         self.fabric_backend = None
         self.fabric_model = None
         if fabric is not None:
@@ -289,7 +322,13 @@ class EventEngine:
         return (*carry, inflight)
 
     def _as_input(self, x, dtype: torch.dtype) -> torch.Tensor:
-        return torch.as_tensor(x, dtype=dtype, device=self.device)
+        """``x`` as a ``dtype`` tensor on the engine's device. Host data
+        bound for the card goes through pinned memory, an upload the host
+        does not wait on (one from pageable memory waits for the device)."""
+        t = torch.as_tensor(x, dtype=dtype)
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
 
     def step(self, carry, input_activity, i_ext=None):
         """One fabric timestep.
@@ -551,6 +590,331 @@ class EventEngine:
             for f in dataclasses.fields(DeliveryStats)
         })
         return carry, (spikes, stats)
+
+    # ------------------------------------------------------------------
+    # Multi-device (DESIGN.md §2): the step over a single-process mesh
+    def _cell_tables(self, tables: _Tables, mesh: DeviceMesh, axis: str) -> dict:
+        """Each mesh cell's rows of ``tables`` (its cluster slab), contiguous
+        on the cell's device; cells on one device with one slab share them.
+        Built once per engine and mesh, not per step."""
+        rows = NamedSharding(mesh, P(axis))
+        by_slab, out = {}, {}
+        for cell in mesh.cells():
+            dev = mesh.device(cell)
+            key = (dev, mesh.index(cell, axis))
+            if key not in by_slab:
+                by_slab[key] = _Tables(**{
+                    f.name: rows.slab(getattr(tables, f.name), cell).to(dev).contiguous()
+                    for f in dataclasses.fields(_Tables)
+                })
+            out[cell] = by_slab[key]
+        return out
+
+    def make_sharded_step(self, mesh: DeviceMesh, axis: str = "data",
+                          batch_axis: str | None = None):
+        """The engine step with clusters sharded over mesh axis ``axis``.
+
+        Neurons, CAM tables and neuron state are cut by cluster slab; each
+        cell's stage-1 partial activity is reduce-scattered across the
+        ``axis`` group (the R2/R3 point-to-point hop), and stage 2 (on the
+        ``cam_match`` kernel) and the dynamics are local to the cell. With
+        ``batch_axis`` the mesh is 2-D: event streams shard over it (pure
+        data parallelism) and every carried tensor bears a leading batch dim.
+        The carry passed in stays whole on its device; each step cuts it
+        into the cells' slabs (views on that device, copies elsewhere) and
+        joins the results back onto it. Each cell's tables are cut once,
+        here.
+
+        The returned function has ``repro``'s flat signature: ``(tables,
+        state, prev_spikes, input_activity, i_ext) -> (state, spikes)``, and
+        with the engine's ``queue_capacity`` set (each cell compacts its slab
+        through its own AER FIFO of ``ceil(Q / n_dev)`` slots) ``(state,
+        spikes, dropped)``, ``dropped`` summed fabric-wide.
+
+        In fabric mode each cell owns a contiguous slab of whole *tiles* (a
+        placement that splits a tile across cells raises), per-link FIFO
+        arbitration runs where the events originate (exact, since a
+        directed link's traffic all comes from one cell), and the step is
+        ``(tables, state, prev_spikes, inflight, input_activity, i_ext) ->
+        (state, spikes, inflight, DeliveryStats)`` with the in-flight buffer
+        cut over its cluster axis and the stats summed fabric-wide; on the
+        ring (the default) ``(tables, state, prev_spikes, ring, cursor,
+        input_activity, i_ext) -> (state, spikes, ring, cursor,
+        DeliveryStats)``, the scalar cursor replicated. The sharded fabric
+        step routes with ``stage1_route_events_fabric`` and a
+        reduce-scatter, as ``repro``'s does, not with ``fabric_deliver``.
+        """
+        n_dev = mesh.shape[axis]
+        if self.n_clusters % n_dev:
+            raise ValueError("clusters must divide device axis")
+        queue_capacity = self.queue_capacity
+        if queue_capacity is not None:  # per-core FIFO: split capacity by slab
+            queue_capacity = max(1, -(-queue_capacity // n_dev))
+        if self.fabric_backend is not None:
+            if self.fabric_backend.faults is not None:
+                raise NotImplementedError(
+                    "fault injection is not supported by the sharded fabric "
+                    "step — run faulted scenarios single-device (DESIGN.md §15)"
+                )
+            return self._make_sharded_fabric_step(mesh, axis, batch_axis, n_dev,
+                                                   queue_capacity)
+        params, cluster_size = self.params, self.cluster_size
+        n_clusters, k_tags = self.n_clusters, self.k_tags
+        own = self._cell_tables(self.tables, mesh, axis)
+        by_cell = NamedSharding(mesh, P(axis) if batch_axis is None else P(batch_axis, axis))
+        per_batch = NamedSharding(mesh, P() if batch_axis is None else P(batch_axis))
+
+        def step(tables, state, prev_spikes, input_activity, i_ext=None):
+            cells = own if tables is self.tables else self._cell_tables(tables, mesh, axis)
+            home = prev_spikes.device
+            inp, ie = _broadcast_inputs(prev_spikes, input_activity, i_ext)
+            st, spk = _shard_state(by_cell, state), by_cell.shard(prev_spikes)
+            xin, xie = by_cell.shard(inp), by_cell.shard(ie)
+            out_state, out_spikes, out_drop = {}, {}, {}
+            for group in mesh.groups(axis):
+                drives, dropped = sharded_local_deliver(
+                    [spk[c] for c in group],
+                    *([getattr(cells[c], name) for c in group]
+                      for name in ("src_tag", "src_dest", "cam_tag", "cam_syn")),
+                    cluster_size, n_clusters, k_tags,
+                    external_activity=[xin[c] for c in group],
+                    queue_capacity=queue_capacity, with_stats=True,
+                )
+                for c, drive, d in zip(group, drives, dropped):
+                    out_state[c], out_spikes[c] = neuron_mod.neuron_step(st[c], drive, params, xie[c])
+                    out_drop[c] = d
+            state = _unshard_state(by_cell, out_state, home)
+            spikes = by_cell.unshard(out_spikes, home)
+            if queue_capacity is None:
+                return state, spikes
+            return state, spikes, per_batch.unshard(out_drop, home)
+
+        return step
+
+    def _make_sharded_fabric_step(self, mesh, axis, batch_axis, n_dev, queue_capacity):
+        """Fabric-mode sharded step: tiles -> cells (see make_sharded_step)."""
+        params, cluster_size = self.params, self.cluster_size
+        n_clusters, k_tags = self.n_clusters, self.k_tags
+        nc_local = n_clusters // n_dev
+        model = self.fabric_backend.model_for(n_clusters)
+        # the device mesh mirrors the chip mesh only if no tile straddles a
+        # cell boundary — every link's traffic then originates on exactly
+        # one cell and per-cell FIFO arbitration is globally exact
+        slab_of_cluster = np.arange(n_clusters) // nc_local
+        for t in np.unique(model.tile_of_cluster):
+            devs = np.unique(slab_of_cluster[model.tile_of_cluster == t])
+            if devs.size > 1:
+                raise ValueError(
+                    f"tile {t} is split across devices {devs.tolist()}: fabric-"
+                    "sharded execution needs each tile's clusters on one device "
+                    "(use the hierarchical linear placement or re-shard)"
+                )
+        own = self._cell_tables(self.tables, mesh, axis)
+        arrs = {cell: self.fabric_backend.arrays_for(n_clusters, mesh.device(cell))
+                for cell in mesh.cells()}
+        per_link = self.fabric_backend.per_link_stats
+        d1 = model.max_delay + 1
+        if batch_axis is None:
+            spec_c, spec_f, spec_d = P(axis), P(None, axis), P()
+        else:
+            spec_c, spec_f, spec_d = P(batch_axis, axis), P(batch_axis, None, axis), P(batch_axis)
+        by_cell, by_line = NamedSharding(mesh, spec_c), NamedSharding(mesh, spec_f)
+        per_batch, replicated = NamedSharding(mesh, spec_d), NamedSharding(mesh, P())
+        stat_fields = [f.name for f in dataclasses.fields(DeliveryStats)]
+
+        def route_group(cells, group, spk, cur):
+            """Stage 1 of one ``axis`` group: each cell compacts and routes
+            its slab; the routed buffers are reduce-scattered to the cluster
+            slabs' owners and the stats summed over the group."""
+            bufs, parts = [], []
+            for c in group:
+                t, a = cells[c], arrs[c]
+                capacity = spk[c].shape[-1] if queue_capacity is None else queue_capacity
+                queue = compact_events(spk[c], capacity)
+                route = stage1_route_events_fabric(
+                    queue, t.src_tag, t.src_dest, n_clusters, k_tags, cluster_size,
+                    a["cluster_tile"], a["delay_steps"], model.n_tiles, model.max_delay,
+                    model.link_capacity, mesh_hops=a["mesh_hops"], latency_s=a["latency_s"],
+                    energy_j=a["energy_j"], src_cluster_offset=mesh.index(c, axis) * nc_local,
+                    cursor=None if cur is None else cur[c], per_link_stats=per_link,
+                )
+                bufs.append(route.buffer)
+                parts.append((queue.dropped, route.link_dropped, route.delivered, route.hops,
+                              route.latency_s, route.energy_j))
+            # hand every (delay, cluster) slab to its owner: the R3 hop. With
+            # per_link_stats the link / pair counters carry a trailing bin
+            # axis; the elementwise sum treats both shapes alike
+            local = psum_scatter(bufs, dim=-2)
+            summed = [psum(list(field)) for field in zip(*parts)]
+            return local, [DeliveryStats(*(s[j] for s in summed)) for j in range(len(group))]
+
+        def run(tables, state, prev_spikes, line, cursor, input_activity, i_ext):
+            cells = own if tables is self.tables else self._cell_tables(tables, mesh, axis)
+            home = prev_spikes.device
+            inp, ie = _broadcast_inputs(prev_spikes, input_activity, i_ext)
+            st, spk = _shard_state(by_cell, state), by_cell.shard(prev_spikes)
+            xin, xie, lines = by_cell.shard(inp), by_cell.shard(ie), by_line.shard(line)
+            cur = None if cursor is None else replicated.shard(cursor)
+            out_state, out_spikes, out_line, out_stats = {}, {}, {}, {}
+            for group in mesh.groups(axis):
+                local, stats = route_group(cells, group, spk, cur)
+                for c, buf, s in zip(group, local, stats):
+                    if cur is None:
+                        a, out_line[c] = advance_inflight(buf, lines[c], model.max_delay)
+                    else:
+                        # the wheel step: accumulate this step's arrivals
+                        # (already cursor-rotated by stage 1), pop and clear
+                        # the cursor slot
+                        a, out_line[c] = _pop_cursor_slot(lines[c] + buf, cur[c])
+                    drive = cam_ops.cam_match((a + xin[c]).contiguous(), cells[c].cam_tag,
+                                              cells[c].cam_syn, cluster_size)
+                    out_state[c], out_spikes[c] = neuron_mod.neuron_step(st[c], drive, params,
+                                                                        xie[c])
+                    out_stats[c] = s
+            stats = DeliveryStats(**{
+                name: per_batch.unshard({c: getattr(s, name) for c, s in out_stats.items()}, home)
+                for name in stat_fields
+            })
+            return (_unshard_state(by_cell, out_state, home), by_cell.unshard(out_spikes, home),
+                    by_line.unshard(out_line, home), stats)
+
+        if self.fabric_ring:
+            def ring_step(tables, state, prev_spikes, ring, cursor, input_activity, i_ext=None):
+                state, spikes, ring, stats = run(tables, state, prev_spikes, ring, cursor,
+                                                 input_activity, i_ext)
+                return state, spikes, ring, (cursor + 1) % d1, stats
+
+            return ring_step
+
+        def roll_step(tables, state, prev_spikes, inflight, input_activity, i_ext=None):
+            return run(tables, state, prev_spikes, inflight, None, input_activity, i_ext)
+
+        return roll_step
+
+
+def _broadcast_inputs(prev_spikes, input_activity, i_ext):
+    """The step's external tag activity and current at the carry's batch
+    shape (a vacant ``i_ext`` is zeros)."""
+    lead = prev_spikes.shape[:-1]
+    inp = torch.broadcast_to(input_activity, (*lead, *input_activity.shape[-2:]))
+    ie = torch.zeros_like(prev_spikes) if i_ext is None else torch.broadcast_to(
+        i_ext, prev_spikes.shape)
+    return inp, ie
+
+
+def _shard_state(sharding: NamedSharding, state: NeuronState) -> dict:
+    leaves = {f.name: sharding.shard(getattr(state, f.name)) for f in dataclasses.fields(NeuronState)}
+    return {cell: NeuronState(**{k: v[cell] for k, v in leaves.items()})
+            for cell in sharding.mesh.cells()}
+
+
+def _unshard_state(sharding: NamedSharding, parts: dict, device) -> NeuronState:
+    return NeuronState(**{
+        f.name: sharding.unshard({c: getattr(s, f.name) for c, s in parts.items()}, device)
+        for f in dataclasses.fields(NeuronState)
+    })
+
+
+class ShardedEventEngine(EventEngine):
+    """:class:`EventEngine` whose step runs over a single-process device mesh.
+
+    The engine owns a 2-D :class:`~repro_torch.distributed.mesh.DeviceMesh`
+    named ``("data", "model")``: batch slots (tenants) shard over ``data``
+    and clusters (tiles) over ``model``, one serving shard of a
+    ``ShardedSessionPool`` (serve/sharded.py, DESIGN.md §17). The public
+    step contract is unchanged (``step(carry, input_activity, i_ext) ->
+    (carry, (spikes, stats))``) and the carry stays whole on the mesh's
+    first device, so session pools, slot surgery (``reset_slots`` /
+    ``extract_slots`` / ``splice_slots``) and checkpointing work on it
+    untouched; only the step runs through
+    :meth:`EventEngine.make_sharded_step`, every cell's stage 2 on the
+    ``cam_match`` kernel. Queued engines always report a
+    :class:`DeliveryStats` (drops summed fabric-wide), matching the
+    ``queue_capacity`` contract of the local engine.
+
+    ``devices=None`` takes the first ``batch_devices * cluster_devices``
+    distinct visible devices of ``device``'s type (the card by default) and
+    raises if there are fewer; an explicit ``devices`` list may name one
+    device more than once (several cells on one card). Constraints of the
+    sharded step: the carry must be batched and the batch must divide over
+    ``batch_devices``; ``n_clusters`` must divide over ``cluster_devices``;
+    in fabric mode the placement must keep every tile's clusters inside one
+    cell's slab (:func:`repro_torch.core.compiler.device_slab_placement`
+    builds such placements) and fault injection is refused. A ``(1, 1)``
+    mesh is valid: serving code paths are then identical with or without
+    more devices.
+    """
+
+    def __init__(
+        self,
+        tables,
+        params: NeuronParams | None = None,
+        *,
+        devices=None,
+        cluster_devices: int = 1,
+        batch_devices: int = 1,
+        device: torch.device | str = "cuda",
+        **engine_kw,
+    ):
+        if cluster_devices <= 0 or batch_devices <= 0:
+            raise ValueError(
+                f"mesh extents must be positive, got {batch_devices} x {cluster_devices}"
+            )
+        mesh = make_mesh((batch_devices, cluster_devices), AXES, devices=devices, device=device)
+        super().__init__(tables, params, device=mesh.home, **engine_kw)
+        if self.n_clusters % cluster_devices:
+            raise ValueError(
+                f"{self.n_clusters} clusters do not divide over {cluster_devices} "
+                "cluster devices"
+            )
+        self.mesh = mesh
+        self.cluster_devices = cluster_devices
+        self.batch_devices = batch_devices
+        # placement and tile-split errors surface here, at construction
+        self._sharded = self.make_sharded_step(mesh, "model", batch_axis="data")
+
+    def step(self, carry, input_activity, i_ext=None):
+        dtype = carry[1].dtype
+        inp = self._as_input(input_activity, dtype)
+        ie = None if i_ext is None else self._as_input(i_ext, dtype)
+        if self.fabric_ring:
+            state, spikes, ring, cursor, stats = self._sharded(self.tables, *carry, inp, ie)
+            return (state, spikes, ring, cursor), (spikes, stats)
+        if self.fabric_backend is not None:
+            state, spikes, inflight, stats = self._sharded(self.tables, *carry, inp, ie)
+            return (state, spikes, inflight), (spikes, stats)
+        out = self._sharded(self.tables, *carry, inp, ie)
+        if self.queue_capacity is None:
+            return (out[0], out[1]), out[1]
+        state, spikes, dropped = out
+        return (state, spikes), (spikes, DeliveryStats(dropped=dropped))
+
+    def carry_pspecs(self):
+        """:class:`~repro_torch.distributed.mesh.PartitionSpec` tree of a
+        batched carry under this engine's mesh, ``repro``'s tree:
+        neuron-state leaves and spikes shard ``[B, N]`` over ``(data,
+        model)``, fabric delay lines shard clusters (``[B, D, nc, K]`` over
+        ``(data, None, model)``) and the ring's cursor is replicated. Feed
+        it through ``distributed.mesh.named`` into
+        ``Checkpointer.restore(shardings=...)``, or to
+        ``distributed.elastic.reshard_tree``, to land a carry on the mesh."""
+        spec_c = P("data", "model")
+        state = NeuronState(spec_c, spec_c, spec_c, spec_c)
+        if self.fabric_backend is None:
+            return (state, spec_c)
+        spec_f = P("data", None, "model")
+        if self.fabric_ring:
+            return (state, spec_c, spec_f, P())
+        return (state, spec_c, spec_f)
+
+    def place_carry(self, carry):
+        """``carry`` (tensors on any device, or numpy) placed on this
+        engine's mesh per :meth:`carry_pspecs`: checked against the specs
+        and moved to the mesh's first device. Splice and restore surgery
+        build host-side or foreign-device leaves; this lands them where the
+        next step reads them."""
+        return tree_map(lambda s, x: s.place(x), named(self.mesh, self.carry_pspecs()), carry,
+                        is_leaf=lambda s: isinstance(s, NamedSharding))
 
 
 def reset_slots(carry, mask: torch.Tensor, fresh):

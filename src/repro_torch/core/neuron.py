@@ -9,6 +9,7 @@ elementwise over the leading batch dims.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -67,6 +68,17 @@ def init_state(
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _synapse_constants(params: NeuronParams, dtype: torch.dtype, device: torch.device):
+    """Per-synapse-type DPI decay ``exp(-dt / tau_syn)`` and weight
+    ``w_syn`` on ``device``, built once per (params, dtype, device): a tensor
+    made from host numbers is a copy the host waits on, which a step must
+    not make."""
+    taus = torch.tensor(params.tau_syn, dtype=dtype, device=device)
+    ws = torch.tensor(params.w_syn, dtype=dtype, device=device)
+    return torch.exp(-params.dt / taus), ws
+
+
 def neuron_step(
     state: NeuronState,
     drive: torch.Tensor,  # [..., N, 4] matched-event weight per synapse type
@@ -79,12 +91,9 @@ def neuron_step(
     """
     p = params
     dt = p.dt
-    kw = {"dtype": state.i_syn.dtype, "device": state.i_syn.device}
-    taus = torch.tensor(p.tau_syn, **kw)
-    ws = torch.tensor(p.w_syn, **kw)
+    decay, ws = _synapse_constants(p, state.i_syn.dtype, state.i_syn.device)
 
     # DPI filters: exponential decay + weighted pulse injection (PE -> DPI).
-    decay = torch.exp(-dt / taus)
     i_syn = state.i_syn * decay + drive * ws
 
     i_fast, i_slow, i_sub, i_shunt = (i_syn[..., k] for k in range(N_SYN_TYPES))

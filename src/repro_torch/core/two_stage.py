@@ -292,8 +292,9 @@ def stage1_route_events_fabric(
     mesh_hops: torch.Tensor | None = None,  # [nc, nc] optional stats matrices
     latency_s: torch.Tensor | None = None,
     energy_j: torch.Tensor | None = None,
+    src_cluster_offset: int = 0,  # sharded: global id of the local slab's cluster 0
     cursor: torch.Tensor | None = None,  # time-wheel write cursor (ring addressing)
-    entry_alive: torch.Tensor | None = None,  # [N, E] bool fault mask (§15)
+    entry_alive: torch.Tensor | None = None,  # [N_local, E] bool fault mask (§15)
     per_link_stats: bool = False,  # keep drop/delivered attribution (§18)
 ) -> FabricRouteResult:
     """Event-sparse stage 1 through the R1/R2/R3 fabric.
@@ -311,8 +312,13 @@ def stage1_route_events_fabric(
     Per-event stats are summed over *delivered* entries only. With
     ``cursor`` set, an event with delay ``d`` lands in slot ``(cursor + d)
     % (max_delay + 1)`` (the time-wheel ring, DESIGN.md §14); arbitration,
-    drops and stats are unchanged. ``repro``'s ``src_cluster_offset``
-    (sharded fabric) is not ported yet.
+    drops and stats are unchanged.
+
+    On one cell of a cluster-sharded mesh (``EventEngine.make_sharded_step``)
+    the queue and the SRAM rows are the cell's own slab, and
+    ``src_cluster_offset`` is the global id of the slab's cluster 0: source
+    clusters are shifted by it, so tile lookup, delays and the stats
+    matrices stay indexed by global cluster.
 
     ``entry_alive`` is the static per-SRAM-entry fault mask of
     :func:`repro_torch.core.faults.entry_alive_mask`: a ``False`` entry's
@@ -331,7 +337,7 @@ def stage1_route_events_fabric(
         fault_mask = valid & ~ev_alive
         valid = valid & ev_alive
     src_cl = torch.where(queue.src >= 0, torch.div(queue.src, cluster_size,
-                                                   rounding_mode="floor"), 0)
+                                                   rounding_mode="floor") + src_cluster_offset, 0)
     src_cl_e = src_cl[..., None].expand(ev_tag.shape).long()  # [..., Q, E]
     dst_cl = ev_dest.clamp(0, n_clusters - 1).long()
     pair = src_cl_e * n_clusters + dst_cl  # flat [nc, nc] index

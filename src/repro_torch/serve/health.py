@@ -27,8 +27,8 @@ observing never perturbs the tenants it watches.
 :class:`ReplacementController` closes the measure -> optimize -> recompile
 loop on a live pool (DESIGN.md §18): it re-places the observed traffic onto
 free tiles and loads the result as a new model version under the live
-sessions. ``FleetWatchdog`` (sharded pools) waits for the ROADMAP item
-"Multi-device" and raises ``NotImplementedError``.
+sessions. :class:`FleetWatchdog` scans a sharded fleet
+(serve/sharded.py) with one :class:`Watchdog` per shard.
 """
 
 from __future__ import annotations
@@ -348,13 +348,37 @@ def migrate_pool(
 
 
 class FleetWatchdog:
-    """Health scan over a sharded session pool: not ported yet."""
+    """Health scan over a :class:`~repro_torch.serve.sharded.ShardedSessionPool`.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "FleetWatchdog watches a sharded session pool, which comes with the "
-            "ROADMAP item 'Multi-device'"
-        )
+    One independent :class:`Watchdog` per shard: progress trackers and drop
+    windows must not mix across shards, whose pools step different tenants
+    on different meshes. :meth:`observe` scans every live shard and returns
+    ``(shard_id, event)`` pairs; a shard that dies between steps drops out
+    of the scan (its watchdog state is kept in case the shard index is
+    later recovered onto a replacement pool).
+    """
+
+    def __init__(self, cfg: WatchdogConfig | None = None):
+        self.cfg = cfg or WatchdogConfig()
+        self._per_shard: dict[int, Watchdog] = {}
+
+    def shard_watchdog(self, shard_id: int) -> Watchdog:
+        if shard_id not in self._per_shard:
+            self._per_shard[shard_id] = Watchdog(self.cfg)
+        return self._per_shard[shard_id]
+
+    def observe(self, fleet) -> list[tuple[int, FaultEvent]]:
+        events: list[tuple[int, FaultEvent]] = []
+        for i in fleet.live_shards():
+            wd = self.shard_watchdog(i)
+            events.extend((i, ev) for ev in wd.observe(fleet.pools[i]))
+        return events
+
+    def link_drop_rate(self) -> float:
+        """Worst windowed link-drop rate across shards (the fleet's health
+        is gated by its sickest shard, not the average)."""
+        rates = [w.link_drop_rate() for w in self._per_shard.values()]
+        return max(rates) if rates else 0.0
 
 
 @dataclasses.dataclass(frozen=True)

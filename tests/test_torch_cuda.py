@@ -17,6 +17,7 @@ terms with exponentials, taken in another order.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -689,3 +690,83 @@ def test_cuda_kernel_info_leaves_larger_launches_runnable(cuda):
                                     cluster_order=entries.cluster_order)
     want = fabric_ops.fabric_deliver_ref(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# ---------------------------------------------------------------------------
+# multi-device: the sharded step over cells that share the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("backend", ["reference", "fabric"])
+def test_cuda_sharded_fleet_equals_the_cpu_fleet_and_launches_once_per_cell(cuda, backend):
+    """A fleet of two 1x2-mesh shards on the card (``devices=[cuda:0] * 2``)
+    on the slab-retiled Table-V tables serves every session as the same
+    fleet on the CPU, launching cam_match once per mesh cell per fleet step
+    and no other kernel; ``devices=None`` refuses the 2-cell mesh on one card."""
+    from repro_torch.serve.sharded import ShardConfig, ShardedSessionPool, retile_for_slabs
+
+    cc = retile_for_slabs(compile_poker_cnn(), 2)
+    shards = ShardConfig(n_shards=2, queue_depth=4, backend=backend, cluster_devices=2)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        fleet = ShardedSessionPool(cc, AerServeConfig(pool_size=2, max_steps=25), shards,
+                                   devices=[dev] * 2)
+        sessions = [
+            DvsSession(i, DvsStreamSource(DvsStreamConfig(symbol=i % 4, seed=9), session_id=i),
+                       label=i % 4)
+            for i in range(5)
+        ]
+        before = [fn.launches for fn in (cam_ops.cam_match, fused_ops.fused_deliver,
+                                          fabric_ops.fabric_deliver)]
+        results = fleet.serve(sessions)
+        after = [fn.launches for fn in (cam_ops.cam_match, fused_ops.fused_deliver,
+                                         fabric_ops.fabric_deliver)]
+        launched = [a - b for a, b in zip(after, before)]
+        assert launched == ([4 * fleet.n_steps, 0, 0] if dev.type == "cuda" else [0, 0, 0])
+        out[dev.type] = sorted((r.session_id, r.prediction, r.latency_steps, r.counts.tolist(),
+                                r.link_dropped) for r in results)
+    assert out["cuda"] == out["cpu"]
+    if torch.cuda.device_count() == 1:
+        with pytest.raises(ValueError, match="fleet needs at least 2 devices per shard, have 1"):
+            ShardedSessionPool(cc, AerServeConfig(pool_size=2), shards)
+
+
+def _enqueue_ms_while_the_card_spins(fn, spin_ms: float = 200.0):
+    """Host ms of ``fn()`` while a spin kernel holds the card for about
+    ``spin_ms``: far below it unless ``fn`` waits for the device."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(spin_ms * 2e6))  # cycles at ~2 GHz
+    t0 = time.perf_counter()
+    out = fn()
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return ms, out
+
+
+@pytest.mark.parametrize("backend", ["cuda", "fused", "fabric", "sharded_queued", "sharded_fabric"])
+def test_cuda_engine_step_never_waits_on_the_device(cuda, backend):
+    """A serving step launched from numpy input returns while the card is
+    still busy: the input goes up through pinned memory and the neuron
+    step's constants are built once, so no step makes the host wait (a
+    fleet step then has every shard's work queued before its one wait)."""
+    from repro_torch.serve.sharded import ShardConfig, ShardedSessionPool, retile_for_slabs
+
+    cc = retile_for_slabs(compile_poker_cnn(), 2)
+    cfg = AerServeConfig(pool_size=4, max_steps=25)
+    if backend.startswith("sharded"):
+        fleet = ShardedSessionPool(cc, cfg, ShardConfig(
+            n_shards=2, backend="fabric" if backend.endswith("fabric") else "reference",
+            cluster_devices=2), devices=[cuda] * 2)
+        pools = fleet.pools
+    else:
+        pools = [AerSessionPool(cc, build_poker_engine(cc.tables, backend=backend, device=cuda),
+                                cfg)]
+    for j, pool in enumerate(pools):
+        for i in range(3):
+            sid = 10 * j + i
+            pool.admit(DvsSession(sid, DvsStreamSource(DvsStreamConfig(symbol=i, seed=9),
+                                                       session_id=sid), label=i))
+        for _ in range(2):
+            pool.step()  # first-use allocations, pinned blocks included
+    ms, outs = _enqueue_ms_while_the_card_spins(lambda: [p.begin_step() for p in pools])
+    for pool, out in zip(pools, outs):
+        pool.finish_step(out)
+    assert ms < 100.0, f"{backend}: launching the step took {ms:.1f} ms of a 200 ms spin"

@@ -60,7 +60,8 @@ def _j_deliver(spikes, ext, src_tag, src_dest, cam_tag, cam_syn, cluster_size, k
 # registry
 # ---------------------------------------------------------------------------
 def test_registry():
-    assert set(tdispatch.available_backends()) == {"reference", "cuda", "fused", "fabric"}
+    assert set(tdispatch.available_backends()) == {"reference", "cuda", "fused", "fabric",
+                                                   "sharded"}
     with pytest.raises(ValueError, match="unknown dispatch backend"):
         tdispatch.get_backend("pallas")
     inst = tdispatch.FusedBackend()

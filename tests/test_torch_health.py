@@ -255,8 +255,25 @@ def test_migrate_pool_onto_an_equal_engine_is_bit_exact(plain):
 def test_unported_parts_name_their_roadmap_items():
     assert dataclasses.astuple(thealth.WatchdogConfig()) == \
         dataclasses.astuple(jhealth.WatchdogConfig())
-    with pytest.raises(NotImplementedError, match="'Multi-device'"):
-        thealth.FleetWatchdog()
+    # FleetWatchdog came with 'Multi-device': one Watchdog per shard, kept
+    # across scans, and the fleet gated by its worst shard, as repro's is
+    rates, scanned = [], []
+    for pkg in (J, T):
+        health, aer = pkg["health"], pkg["aer"]
+        fw = health.FleetWatchdog(health.WatchdogConfig(window=4))
+        assert fw.link_drop_rate() == 0.0
+        a, b = fw.shard_watchdog(0), fw.shard_watchdog(3)
+        assert fw.shard_watchdog(0) is a and a is not b and isinstance(a, health.Watchdog)
+        a._drop_window.extend([0.1, 0.3])
+        b._drop_window.append(0.5)
+        rates.append(fw.link_drop_rate())
+        cc = pkg["cnn"].compile_poker_cnn()
+        pool = aer.AerSessionPool(cc, aer.build_poker_engine(cc.tables, **pkg["kw"]),
+                                  aer.AerServeConfig(pool_size=1))
+        fleet = type("Fleet", (), {"pools": {5: pool}, "live_shards": lambda self: [5]})()
+        scanned.append((fw.observe(fleet), sorted(fw._per_shard)))
+    assert rates == [0.5, 0.5]
+    assert scanned[0] == scanned[1] == ([], [0, 3, 5])
     # the live versioned swap came with 'Multi-model': repro's defaults, and
     # a pool without a traffic profile is refused as repro refuses it
     assert dataclasses.astuple(thealth.ReplacementConfig()) == \
