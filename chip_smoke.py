@@ -125,12 +125,39 @@ Phases, each of which fails the run on any error:
      version in phase 2 at B = 8, T = 64, H = 40, P = 64, on deep (log_w =
      -e) and extreme (down to -90 per token) decays, on a chunk ending in
      the chunked core's padding, and on tail chunks of T = 8, 17 and 37;
-     its registers, spills, shared bytes and blocks per SM are logged.
+     its registers, spills, shared bytes and blocks per SM are logged;
+  5. attention and MoE serving, with the launch counts set to 0 just before
+     it and read just after (no Pallas kernel lies on this path: repro runs
+     attention and the MoE dispatch in plain jnp, the port in plain
+     PyTorch, so every count must stay 0). Each model's bfloat16 weights
+     are initialised on the card from seed 7 and freed before the next.
+     5a: deepseek-moe-16b at full width and depth (28 layers: a dense
+     prefix layer and 27 MoE layers of 64 routed experts, top-6, and 2
+     shared ones) serves 8 prompts of 512 tokens + 32 greedy tokens through
+     ``Engine.generate``; prefill and decode timed and profiled, the decode
+     floor (every byte a step must read over 3.35 TB/s), the expert loads
+     and the share of assignments dropped at capacity factor 1.25 in
+     prefill and decode; one MoE layer's ``moe_local`` at capacity T * k
+     against ``moe_reference`` on 512 bfloat16 tokens (within 2^-5 of the
+     largest output); at float32, the prefix layer and one MoE layer at a
+     capacity factor where nothing drops, prefill + 8 decode steps against
+     one full forward (within 1e-4 of the largest logit). 5b: gemma3-1b at
+     full width and depth (26 layers, 5:1 local(512):global + 2, qk-norm,
+     head_dim 256, MQA, vocab 262144) serves 4 prompts of 4096 tokens + 32,
+     timed and profiled; at that shape in float32, ``attend_chunked``
+     against ``attend_dense``, global and windowed (allclose(rtol=1e-5,
+     atol=2e-5)); at float32 with one period, prefill + 8 decode steps
+     against the full forward (1e-4). 5c: gemma2-27b, glm4-9b, yi-34b and
+     internvl2-76b cut to one period, whisper-base whole (6 + 6, 1500
+     frames), at full width: 2 prompts of 300 tokens + 8, timed, and
+     prefill + decode against the full forward within 2^-5 of the largest
+     bfloat16 logit.
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` from the serving
 and LM paths, ``launches_compiler_phase`` from phase 3b,
 ``launches_faults_phase`` from phase 3c, ``launches_multimodel_phase`` from
 phase 3d, ``launches_multidevice_phase`` from phase 3e,
+``launches_attention_moe_phase`` from phase 5 (0),
 ``device_ms_two_table_v`` / ``device_ms_table_v_plus_k512`` from phase 3d's
 part 6), then as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (the plain stage 2
@@ -195,7 +222,9 @@ from repro_torch.kernels.cam_match.ref import cam_counts  # noqa: E402
 from repro_torch.kernels.fabric_deliver import ops as fabric_ops  # noqa: E402
 from repro_torch.kernels.fused_deliver import ops as fused_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops  # noqa: E402
+from repro_torch.models import attention as attn_ops  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
+from repro_torch.models import moe as moe_ops  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serve.aer import (  # noqa: E402
     AerServeConfig,
@@ -2781,15 +2810,19 @@ def phase_multidevice(dev, v1) -> dict[str, int]:
 STREAM_TOL = 2.0**-5  # bfloat16 residual stream: 4 ulps at its largest element
 
 
+def _hold_rel(got, want, tol: float, what: str) -> float:
+    """Largest difference over the largest magnitude of ``want``; fails past ``tol``."""
+    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{what}: differs by {err:.3g} of the largest value, past {tol}")
+    return err
+
+
 def _stream_err(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
     """Largest difference over the largest magnitude of ``want``; fails past
     STREAM_TOL. A chunk output that rounds to the next bfloat16 value moves
     the block's output by an ulp or two at the stream's scale."""
-    err = float((got.float() - want.float()).abs().max() / want.float().abs().max())
-    if not err <= STREAM_TOL:
-        raise AssertionError(f"{what}: kernel and plain legs differ by {err:.3g} of the "
-                             f"largest value, past {STREAM_TOL}")
-    return err
+    return _hold_rel(got, want, STREAM_TOL, f"{what}: kernel and plain legs")
 
 
 def check_lm_layers(model, prompts: torch.Tensor, new_tokens: torch.Tensor) -> dict:
@@ -2816,8 +2849,9 @@ def check_lm_layers(model, prompts: torch.Tensor, new_tokens: torch.Tensor) -> d
         x = lm_layers.embed(model.embedding.table, tokens, cfg.scale_embeddings, cfg.d_model)
         x = x.to(lm_layers.dt(cfg.compute_dtype))
         for i, block in enumerate(model.stack):
-            outs = {kernel: block(x, caches[kernel][i], use_kernel=kernel) for kernel in (True, False)}
-            (xk, ck), (xp, cp) = outs[True], outs[False]
+            outs = {kernel: block(x, None, caches[kernel][i], use_kernel=kernel)
+                    for kernel in (True, False)}
+            (xk, ck, _), (xp, cp, _) = outs[True], outs[False]
             worst["stream"] = max(worst["stream"], _stream_err(xk, xp, f"{what}, layer {i}"))
             torch.testing.assert_close(ck["wkv"], cp["wkv"], rtol=1e-4, atol=1e-3)
             worst["wkv"] = max(worst["wkv"], float((ck["wkv"] - cp["wkv"]).abs().max()))
@@ -2845,10 +2879,11 @@ def _timed(fn) -> tuple[object, float]:
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def profile_lm(fn, per: int = 1) -> dict:
+def profile_lm(fn, per: int = 1, kernel: str | None = None) -> dict:
     """One call of ``fn`` under torch.profiler, reported per ``per`` steps:
-    wall ms, device busy ms, device ops, the rwkv6_chunk kernel's device ms,
-    the device idle share of the wall time and the largest kernels."""
+    wall ms, device busy ms, device ops, the device idle share of the wall
+    time, the largest kernels and, given the name of a kernel of the port,
+    that kernel's device ms."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -2862,16 +2897,69 @@ def profile_lm(fn, per: int = 1) -> dict:
             n_ops += 1
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-    return {
+    out = {
         "steps": per,
         "wall_ms": wall_ms / per,
         "device_busy_ms": busy / per,
         "device_ops": n_ops / per,
         "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
-        "rwkv6_chunk_device_ms": sum(ms for name, ms in by_kernel.items()
-                                     if "rwkv6_chunk_kernel" in name) / per,
         "top_device_ms": {name[:100]: ms / per for name, ms in top},
     }
+    if kernel is not None:
+        out[f"{kernel}_device_ms"] = sum(ms for name, ms in by_kernel.items()
+                                         if f"{kernel}_kernel" in name) / per
+    return out
+
+
+def _clone(tree):
+    """A copy of a cache tree (attention layers write their KV rings in place)."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone(v) for v in tree]
+    return tree.clone()
+
+
+def time_prefill_decode(model, prompts, tokens, max_len: int, extras=None,
+                        kernel: str | None = None, profile: bool = True) -> tuple[dict, torch.Tensor]:
+    """Prefill (median of 3) and the decode steps feeding ``tokens[:, :-1]``
+    teacher-forced, timed apart on the host clock around a device
+    synchronise; then, with ``profile``, one prefill and the same decode
+    steps under torch.profiler. Returns (the numbers, the last prefill's
+    logits)."""
+    b, s = prompts.shape
+    steps = tokens.shape[1] - 1
+    with torch.inference_mode():
+        prefill_ms, repeats = [], []
+        for _ in range(3):
+            (logits, caches), ms = _timed(
+                lambda: model.prefill(prompts, model.init_caches(b, max_len), extras))
+            prefill_ms.append(ms)
+            repeats.append(logits)
+        if not torch.isfinite(logits).all() or logits.shape != (b, 1, model.cfg.vocab):
+            raise AssertionError(f"prefill logits: shape {tuple(logits.shape)}, or not finite")
+
+        def decode(c):
+            for t in range(steps):
+                pos = torch.full((b, 1), s + t, device=prompts.device)
+                lg, c = model.decode_step(tokens[:, t:t + 1], pos, c)
+            return lg
+
+        last, decode_ms = _timed(lambda c0=_clone(caches): decode(c0))
+        if not torch.isfinite(last).all():
+            raise AssertionError("decode logits are not finite")
+    pf = statistics.median(prefill_ms)
+    per_token = decode_ms / steps
+    out = {"prefill_ms": pf, "prefill_ms_runs": prefill_ms,
+           "prefill_tokens_per_s": b * s / pf * 1e3, "decode_ms_per_step": per_token,
+           "decode_tokens_per_s": b / per_token * 1e3,
+           "prefill_bitwise_repeatable": all(torch.equal(x, repeats[0]) for x in repeats)}
+    if profile:
+        out["profile_prefill"] = profile_lm(
+            lambda: model.prefill(prompts, model.init_caches(b, max_len), extras), kernel=kernel)
+        out["profile_decode"] = profile_lm(lambda c0=_clone(caches): decode(c0), per=steps,
+                                           kernel=kernel)
+    return out, logits
 
 
 def phase_lm(dev: torch.device) -> dict[str, int]:
@@ -2904,37 +2992,15 @@ def phase_lm(dev: torch.device) -> dict[str, int]:
     lm = {"generate_ms": gen_ms, "generate_tokens_per_s": LM_BATCH * LM_NEW / gen_ms * 1e3,
           "launches": counts}
 
-    # prefill and decode timed apart (median of 3 prefills; 31 decode steps)
-    with torch.inference_mode():
-        prefill_ms, repeats = [], []
-        for _ in range(3):
-            before = rwkv_ops.rwkv6_chunk.launches
-            (logits, caches), ms = _timed(lambda: model.prefill(prompts, fresh()))
-            if rwkv_ops.rwkv6_chunk.launches - before != per_prefill:
-                raise AssertionError("a prefill did not launch rwkv6_chunk once per chunk per layer")
-            prefill_ms.append(ms)
-            repeats.append(logits)
-        if not torch.isfinite(logits).all() or logits.shape != (LM_BATCH, 1, cfg.vocab):
-            raise AssertionError(f"prefill logits: shape {tuple(logits.shape)}, or not finite")
-
-        def decode():
-            c = caches
-            for t in range(LM_NEW - 1):
-                pos = torch.full((LM_BATCH, 1), LM_PROMPT + t, device=dev)
-                lg, c = model.decode_step(tokens[:, t:t + 1], pos, c)
-            return lg
-
-        last, decode_ms = _timed(decode)
-        if not torch.isfinite(last).all():
-            raise AssertionError("decode logits are not finite")
-    pf = statistics.median(prefill_ms)
-    per_token = decode_ms / (LM_NEW - 1)
-    lm.update(prefill_ms=pf, prefill_ms_runs=prefill_ms,
-              prefill_tokens_per_s=LM_BATCH * LM_PROMPT / pf * 1e3,
-              decode_ms_per_step=per_token, decode_tokens_per_s=LM_BATCH / per_token * 1e3)
-    lm["prefill_bitwise_repeatable"] = all(torch.equal(x, repeats[0]) for x in repeats)
-    lm["profile_prefill"] = prof = profile_lm(lambda: model.prefill(prompts, fresh()))
-    lm["profile_decode"] = dprof = profile_lm(decode, per=LM_NEW - 1)
+    # prefill and decode timed apart (median of 3 prefills; 31 decode steps), then profiled
+    before = rwkv_ops.rwkv6_chunk.launches
+    timing, logits = time_prefill_decode(model, prompts, tokens, LM_PROMPT + LM_NEW,
+                                         kernel="rwkv6_chunk")
+    if rwkv_ops.rwkv6_chunk.launches - before != 4 * per_prefill:
+        raise AssertionError("a prefill did not launch rwkv6_chunk once per chunk per layer")
+    lm.update(timing)
+    pf, per_token = lm["prefill_ms"], lm["decode_ms_per_step"]
+    prof, dprof = lm["profile_prefill"], lm["profile_decode"]
     log(f"rwkv6-3b serve (B = {LM_BATCH}, prompt {LM_PROMPT}, {LM_NEW} new, greedy): generate "
         f"{gen_ms:.1f} ms ({lm['generate_tokens_per_s']:.1f} new tokens/s), rwkv6_chunk launched "
         f"{counts['rwkv6_chunk']} times (= {cfg.n_layers} layers x {per_prefill // cfg.n_layers} "
@@ -2970,7 +3036,7 @@ def phase_lm(dev: torch.device) -> dict[str, int]:
         f"{lm['plain_leg']['prefill_logits_max_abs']:.3g}); greedy tokens equal "
         f"{lm['plain_leg']['greedy_tokens_equal_share']:.3f} (first token "
         f"{lm['plain_leg']['first_token_equal_share']:.3f})")
-    del model, engine, caches, logits, plain_logits
+    del model, engine, logits, plain_logits
     torch.cuda.empty_cache()
     lm["fp32_two_layers"] = check_fp32_sequential(dev, cfg, prompts)
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -3015,6 +3081,298 @@ def check_fp32_sequential(dev: torch.device, cfg, prompts: torch.Tensor) -> dict
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: attention and MoE serving
+# ---------------------------------------------------------------------------
+G3_BATCH, G3_PROMPT = 4, 4096  # gemma3-1b: 4 prompts of 4096 tokens, LM_NEW new
+SMALL_BATCH, SMALL_PROMPT, SMALL_NEW = 2, 300, 8  # phase 5c
+FP32_TOL = 1e-4  # float32 logits, the same sums in two orders: 1e-4 of the largest
+# phase 5c: (arch, periods kept; None keeps the full depth). yi-34b and
+# internvl2-76b would not fit whole in bfloat16 (about 69 and 152 GB)
+SMALL_ARCHS = (("gemma2-27b", 1), ("glm4-9b", 1), ("yi-34b", 1), ("internvl2-76b", 1),
+               ("whisper-base", None))
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _frontend_inputs(cfg, b: int, dev) -> dict | None:
+    """The stub frontends' inputs, as ``batch_extras``: random frames
+    (whisper) or patch embeddings (internvl2) from the seed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    if cfg.frontend == "audio_stub":
+        return {"frames": torch.randn((b, cfg.enc_seq, cfg.d_model), generator=gen, device=dev)}
+    if cfg.frontend == "vision_stub":
+        return {"prefix_embeddings": torch.randn((b, cfg.n_prefix_embeddings, cfg.d_model),
+                                                 generator=gen, device=dev)}
+    return None
+
+
+def decode_floor_ms(model, b: int, max_len: int) -> float:
+    """The least time of one decode step: every byte it must read once, over
+    the card's memory rate. Every parameter but the rows of an untied input
+    embedding (a gather), every MoE expert (each expert runs its buffer of
+    slots, empty or not, as repro's dispatch does) and the KV caches."""
+    n = sum(p.numel() * p.element_size() for name, p in model.named_parameters()
+            if not (name == "embedding.table" and not model.cfg.tie_embeddings))
+    caches = model.init_caches(b, max_len)
+    n += sum(_nbytes(*c.values()) for c in caches["stack"])
+    n += _nbytes(caches["enc_out"]) if "enc_out" in caches else 0
+    return n / HBM_BYTES_PER_S * 1e3
+
+
+def serve_lm(cfg, dev, b: int, s: int, new: int, profile: bool):
+    """Build ``cfg`` on the card from the seed, serve ``b`` prompts of ``s``
+    tokens plus ``new`` greedy tokens through ``Engine.generate``, then time
+    prefill and decode apart (profiled when asked). Returns (model, numbers,
+    prompts, tokens, frontend inputs)."""
+    torch.cuda.reset_peak_memory_stats()
+    model, init_ms = _timed(lambda: build_model(cfg, device=dev, seed=SEED))
+    prompts_np = np.random.default_rng(SEED).integers(0, cfg.vocab, (b, s))
+    prompts = torch.as_tensor(prompts_np, device=dev)
+    extras = _frontend_inputs(cfg, b, dev)
+    engine = Engine(model, ServeConfig(max_len=s + new))
+    engine.generate(prompts, 2, extras)  # first-use allocations and library loads
+    tokens, gen_ms = _timed(lambda: engine.generate(prompts_np, new, extras))
+    if tokens.shape != (b, new) or int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab:
+        raise AssertionError(f"{cfg.name} generate: tokens of shape {tuple(tokens.shape)} "
+                             f"in [{int(tokens.min())}, {int(tokens.max())}]")
+    total, active = cfg.param_count()
+    out = {"layers": cfg.n_layers, "n_enc_layers": cfg.n_enc_layers,
+           "parameters": sum(p.numel() for p in model.parameters()),
+           "param_count_total": total, "param_count_active": active, "init_ms": init_ms,
+           "batch": b, "prompt": s, "new": new, "generate_ms": gen_ms,
+           "generate_tokens_per_s": b * new / gen_ms * 1e3,
+           "decode_floor_ms": decode_floor_ms(model, b, s + new)}
+    timing, _ = time_prefill_decode(model, prompts, tokens, s + new, extras, profile=profile)
+    out.update(timing)
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{cfg.name} ({cfg.n_layers} layers"
+        + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
+        + f", {out['parameters']} parameters, param_count {total} / {active} active, "
+        f"{cfg.param_dtype}) serves B = {b} x {s} + {new} greedy: generate {gen_ms:.1f} ms; "
+        f"prefill {out['prefill_ms']:.2f} ms ({out['prefill_tokens_per_s']:.0f} tokens/s), decode "
+        f"{out['decode_ms_per_step']:.2f} ms/step ({out['decode_tokens_per_s']:.1f} tokens/s; "
+        f"floor {out['decode_floor_ms']:.2f} ms), peak memory {out['max_memory_allocated_gb']:.2f} GB")
+    for what in ("prefill", "decode"):
+        pr = out.get(f"profile_{what}")
+        if pr:
+            top = ", ".join(f"{name[:60]} {ms:.2f}" for name, ms in list(pr["top_device_ms"].items())[:4])
+            log(f"  profiled {what}: wall {pr['wall_ms']:.2f} ms, device busy "
+                f"{pr['device_busy_ms']:.2f} ms over {pr['device_ops']:.0f} ops, idle share "
+                f"{pr['device_idle_share']:.3f}; largest: {top}")
+    return model, out, prompts, tokens, extras
+
+
+def check_against_full(model, prompts, tokens, extras, tol: float, what: str) -> dict:
+    """A prefill over ``prompts`` and decode steps feeding ``tokens[:, :-1]``
+    against one forward over the prompt and those tokens: the logits at the
+    last prompt position and at each decoded one within ``tol`` of the
+    largest full-forward logit (repro's tests/test_smoke_archs.py check)."""
+    b, s = prompts.shape
+    n = tokens.shape[1] - 1
+    seq = torch.cat([prompts, tokens[:, :n]], 1)
+    pos = torch.arange(s + n, device=prompts.device).expand(b, s + n)
+    with torch.inference_mode():
+        h, _, _ = model(seq, pos, None, extras)
+        full = model._unembed(h[:, s - 1:])
+        del h
+        lp, caches = model.prefill(prompts, model.init_caches(b, s + n), extras)
+        got = [lp[:, 0]]
+        for t in range(n):
+            ld, caches = model.decode_step(tokens[:, t:t + 1], pos[:, s + t:s + t + 1], caches)
+            got.append(ld[:, 0])
+        got = torch.stack(got, 1)
+    err = _hold_rel(got, full, tol, f"{what}: prefill + decode against the full forward")
+    return {"max_rel_err": err, "tol": tol, "positions": n + 1,
+            "argmax_agree_share": float((got.argmax(-1) == full.argmax(-1)).float().mean())}
+
+
+def moe_routing(model, cfg, prompts, tokens) -> dict:
+    """Expert loads of the prefill and of the decode steps (teacher-forced
+    with the served tokens), and the assignments dropped at the configured
+    capacity: an expert keeps the first ``cap`` of its assignments."""
+    b, s = prompts.shape
+    with torch.inference_mode():
+        caches = model.init_caches(b, s + tokens.shape[1])
+        pos = torch.arange(s, device=prompts.device).expand(b, s)
+        _, caches, aux = model(prompts, pos, caches)
+        loads = {"prefill": (aux["moe_load_periods"], b * s)}
+        steps = []
+        for t in range(tokens.shape[1] - 1):
+            pos = torch.full((b, 1), s + t, device=prompts.device)
+            _, caches, aux = model(tokens[:, t:t + 1], pos, caches)
+            steps.append(aux["moe_load_periods"])
+        loads["decode"] = (torch.stack(steps), b)
+    out = {}
+    for what, (load, t) in loads.items():
+        cap = moe_ops.expert_capacity(cfg, t)
+        dropped = int((load - cap).clamp_min(0).sum())
+        assigned = int(load.sum())
+        if assigned != load.numel() // cfg.n_experts * t * cfg.top_k:  # (step,) layer rows
+            raise AssertionError(f"{what}: {assigned} assignments for {t} tokens per layer")
+        out[what] = {"tokens_per_layer": t, "capacity": cap, "assignments": assigned,
+                     "dropped": dropped, "dropped_share": dropped / assigned,
+                     "load_max": int(load.max()), "load_min": int(load.min()),
+                     "load_mean": float(load.mean()),
+                     "expert_layers_over_capacity": int((load > cap).sum())}
+        log(f"  routing, {what}: {t} tokens per layer, capacity {cap} per expert: {dropped} of "
+            f"{assigned} assignments dropped ({dropped / assigned:.4f}); load per expert and layer "
+            f"{out[what]['load_min']}-{out[what]['load_max']} (mean {out[what]['load_mean']:.1f}), "
+            f"{out[what]['expert_layers_over_capacity']} (expert, layer) pairs over capacity")
+    return out
+
+
+def check_moe_layer(model, cfg, dev) -> dict:
+    """The first MoE layer of the served model on the card: ``moe_local`` at
+    capacity T * k (nothing drops) against ``moe_reference`` on 512 random
+    bfloat16 tokens, within STREAM_TOL of the largest output (bfloat16
+    expert outputs summed in bfloat16 against a float32 combine), loads
+    equal; and the layer timed at the prefill's and the decode's token
+    counts (CUDA events)."""
+    layer = next(block.ffn for block in model.stack if block.spec.ffn == "moe")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((512, cfg.d_model), generator=gen, device=dev).to(lm_layers.dt(cfg.param_dtype))
+    with torch.inference_mode():
+        y, aux = moe_ops.moe_local(layer, x, cfg, capacity=512 * cfg.top_k)
+        ref, ref_aux = moe_ops.moe_reference(layer, x, cfg)
+        if not torch.equal(aux["load"], ref_aux["load"]):
+            raise AssertionError("moe_local and moe_reference route differently")
+        err = _hold_rel(y, ref, STREAM_TOL, "moe_local against moe_reference")
+        out = {"tokens": 512, "max_rel_err": err, "tol": STREAM_TOL}
+        for what, t in (("prefill", LM_BATCH * LM_PROMPT), ("decode", LM_BATCH)):
+            xt = torch.randn((t, cfg.d_model), generator=gen, device=dev).to(x.dtype)
+            out[f"moe_local_ms_{what}"] = time_ms(lambda: moe_ops.moe_local(layer, xt, cfg),
+                                                  repeats=10, inner=5)
+    log(f"  one MoE layer: moe_local (capacity T*k) against moe_reference at T = 512, bf16: "
+        f"within {err:.3g} of the largest output (limit {STREAM_TOL}), loads equal; moe_local "
+        f"{out['moe_local_ms_prefill']:.3f} ms at T = {LM_BATCH * LM_PROMPT}, "
+        f"{out['moe_local_ms_decode']:.3f} ms at T = {LM_BATCH}")
+    return out
+
+
+def phase5_deepseek(dev) -> dict:
+    """5a: deepseek-moe-16b at full width and depth."""
+    cfg = get_config("deepseek-moe-16b")
+    model, out, prompts, tokens, _ = serve_lm(cfg, dev, LM_BATCH, LM_PROMPT, LM_NEW, profile=True)
+    out["routing"] = moe_routing(model, cfg, prompts, tokens)
+    out["moe_layer"] = check_moe_layer(model, cfg, dev)
+    del model
+    _free()
+    # float32, the dense prefix layer and one MoE layer, a capacity factor at
+    # which no expert can drop (capacity >= T); 2 prompts of 512 + 8 steps
+    cfg32 = dataclasses.replace(cfg, n_periods=1, param_dtype="float32", compute_dtype="float32",
+                                capacity_factor=float(math.ceil(cfg.n_experts / cfg.top_k)))
+    model = build_model(cfg32, device=dev, seed=SEED)
+    rng = np.random.default_rng(SEED)
+    p32 = torch.as_tensor(rng.integers(0, cfg.vocab, (2, LM_PROMPT)), device=dev)
+    t32 = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 9)), device=dev)
+    out["fp32_prefix_and_one_moe_layer"] = check_against_full(model, p32, t32, None, FP32_TOL,
+                                                              "deepseek-moe-16b fp32, 2 layers")
+    log(f"  fp32, the prefix layer + 1 MoE layer at full width, capacity_factor "
+        f"{cfg32.capacity_factor} (no drops): prefill + 8 decode steps equal the full forward "
+        f"within {out['fp32_prefix_and_one_moe_layer']['max_rel_err']:.3g} of the largest logit "
+        f"(limit {FP32_TOL})")
+    del model
+    _free()
+    return out
+
+
+def check_chunked_attention(dev, cfg) -> dict:
+    """One gemma3-1b attention core at its prefill shape (B = 4, S = 4096,
+    4 query heads on 1 kv head of 256), float32, random q, k, v from the
+    seed: ``attend_chunked`` against ``attend_dense``, global (causal) and
+    local (window 512), allclose(rtol=1e-5, atol=2e-5); each path timed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, s = G3_BATCH, G3_PROMPT
+    q = torch.randn((b, s, cfg.n_heads, cfg.head_dim), generator=gen, device=dev)
+    k, v = (torch.randn((b, s, cfg.n_kv_heads, cfg.head_dim), generator=gen, device=dev)
+            for _ in range(2))
+    pos = torch.arange(s, device=dev).expand(b, s)
+    out = {}
+    with torch.inference_mode():
+        for what, window in (("global", None), ("local", 512)):
+            kw = dict(window=window, scale=cfg.head_dim**-0.5)
+            chunked = attn_ops.attend_chunked(q, k, v, pos, pos, **kw)
+            dense = attn_ops.attend_dense(q, k, v, pos, pos, **kw)
+            torch.testing.assert_close(chunked, dense, rtol=1e-5, atol=2e-5)
+            out[what] = {"max_abs_err": float((chunked - dense).abs().max()),
+                         "chunked_ms": time_ms(lambda: attn_ops.attend_chunked(q, k, v, pos, pos, **kw),
+                                               repeats=3, inner=2),
+                         "dense_ms": time_ms(lambda: attn_ops.attend_dense(q, k, v, pos, pos, **kw),
+                                             repeats=3, inner=2)}
+            del chunked, dense
+    log(f"  gemma3-1b attention core at B = {b}, S = {s}, fp32: attend_chunked equals attend_dense "
+        + "; ".join(f"{w} max abs err {o['max_abs_err']:.3g}, chunked {o['chunked_ms']:.2f} ms, "
+                    f"dense {o['dense_ms']:.2f} ms" for w, o in out.items())
+        + " (allclose(rtol=1e-5, atol=2e-5))")
+    return out
+
+
+def phase5_gemma3(dev) -> dict:
+    """5b: gemma3-1b at full width and depth, 4096-token prompts."""
+    cfg = get_config("gemma3-1b")
+    model, out, prompts, tokens, _ = serve_lm(cfg, dev, G3_BATCH, G3_PROMPT, LM_NEW, profile=True)
+    del model
+    _free()
+    out["attention_core"] = check_chunked_attention(dev, cfg)
+    _free()
+    # float32, one period (5 local layers and the global one), the same prompts + 8 steps
+    cfg32 = dataclasses.replace(cfg, n_periods=1, remainder=(), param_dtype="float32",
+                                compute_dtype="float32")
+    model = build_model(cfg32, device=dev, seed=SEED)
+    out["fp32_one_period"] = check_against_full(model, prompts, tokens[:, :9], None, FP32_TOL,
+                                                "gemma3-1b fp32, one period")
+    log(f"  fp32, one period (6 layers) at full width: prefill of {G3_PROMPT} + 8 decode steps "
+        f"equal the full forward within {out['fp32_one_period']['max_rel_err']:.3g} of the "
+        f"largest logit (limit {FP32_TOL})")
+    del model
+    _free()
+    return out
+
+
+def phase5_small(dev) -> dict:
+    """5c: the other five at full width, B = 2 prompts of 300 tokens + 8."""
+    out = {}
+    for arch, periods in SMALL_ARCHS:
+        cfg = get_config(arch)
+        if periods is not None:
+            cfg = dataclasses.replace(cfg, n_periods=periods)
+        model, res, prompts, tokens, extras = serve_lm(cfg, dev, SMALL_BATCH, SMALL_PROMPT,
+                                                       SMALL_NEW, profile=False)
+        res["periods_kept"] = cfg.n_periods
+        res["vs_full"] = check_against_full(model, prompts, tokens, extras, STREAM_TOL, arch)
+        log(f"  {arch} ({cfg.n_periods} of {get_config(arch).n_periods} periods): prefill + "
+            f"{SMALL_NEW - 1} decode steps equal the full forward within "
+            f"{res['vs_full']['max_rel_err']:.3g} of the largest logit (limit {STREAM_TOL}); "
+            f"argmax agrees at {res['vs_full']['argmax_agree_share']:.3f} of positions")
+        out[arch] = res
+        del model, extras
+        _free()
+    return out
+
+
+def phase_attention_moe(dev) -> dict[str, int]:
+    """Phase 5: the launch counts set to 0 just before and read just after.
+    No Pallas kernel lies on this path (repro computes attention and the MoE
+    dispatch in plain jnp), so it must launch none of the port's kernels."""
+    t0 = time.perf_counter()
+    _reset_counts()
+    out = {"deepseek-moe-16b": phase5_deepseek(dev), "gemma3-1b": phase5_gemma3(dev),
+           "small": phase5_small(dev)}
+    counts = _read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"attention and MoE phase launched {counts}")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "chip_smoke_attention_moe.json").write_text(json.dumps(out, indent=1))
+    log(f"attention and MoE phase: {out['seconds']:.1f} s, launches {counts}")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on the GPU only")
@@ -3029,6 +3387,7 @@ def main() -> None:
     multimodel_launches, mm_kernels = phase_multimodel(dev, v1)
     multidevice_launches = phase_multidevice(dev, v1)
     launches.update(phase_lm(dev))
+    attention_moe_launches = phase_attention_moe(dev)
     if set(launches) != set(kernels):
         raise AssertionError(f"serving legs launched {sorted(launches)}, kernels {sorted(kernels)}")
     for name, n in launches.items():
@@ -3039,6 +3398,7 @@ def main() -> None:
         kernels[name]["launches_faults_phase"] = faults_launches.get(name, 0)
         kernels[name]["launches_multimodel_phase"] = multimodel_launches.get(name, 0)
         kernels[name]["launches_multidevice_phase"] = multidevice_launches.get(name, 0)
+        kernels[name]["launches_attention_moe_phase"] = attention_moe_launches.get(name, 0)
         for shape, at in mm_kernels.items():
             if name in at:
                 kernels[name][f"device_ms_{shape}"] = at[name]["device_ms"]

@@ -88,14 +88,22 @@ def lm_params_from_numpy(cfg, tree, device: torch.device | str = "cuda") -> dict
     """The port's LM state dict from ``repro``'s parameter pytree as numpy
     arrays (``jax.tree.map(np.asarray, params)``), for ``Model.load_state_dict``.
 
-    ``repro`` stacks its scanned periods along a leading ``[n_periods]`` axis
-    (``tree["stack"]["periods"]["b{i}"]``); the port's stack has one module per
-    layer, so period ``p``'s block ``i`` becomes ``stack.{p * len(period) + i}``.
-    Every array keeps its dtype (bfloat16 stays bfloat16) and lands on
-    ``device``, the card unless the caller asks for the CPU.
+    ``repro`` keeps its unrolled blocks as ``prefix{i}`` / ``remainder{i}``
+    and stacks its scanned periods along a leading ``[n_periods]`` axis
+    (``periods/b{i}``); the port's stacks have one module per layer, in the
+    order prefix, periods, remainder. So under ``stack``, ``prefix{i}``
+    becomes layer ``i``, period ``p``'s block ``i`` layer ``len(prefix) + p *
+    len(period) + i`` and ``remainder{i}`` the layer after the periods' last
+    plus ``i``. The encoder (``encoder/periods/b0``, one block per period)
+    unstacks the same way, and the embeddings, the norms and every leaf
+    inside a block (MoE experts ``[E, ...]``, shared experts, q/k norms,
+    cross-attention, post-block norms) keep their names. Every array keeps
+    its dtype (bfloat16 stays bfloat16) and lands on ``device``, the card
+    unless the caller asks for the CPU.
     """
     device = resolve_device(device)
-    n_p = len(cfg.period)
+    n_pre, n_p = len(cfg.prefix_layers), len(cfg.period)
+    layout = {"stack": (n_pre, n_p, n_pre + cfg.n_periods * n_p), "encoder": (0, 1, 0)}
     out: dict[str, torch.Tensor] = {}
 
     def put(name: str, a) -> None:
@@ -106,12 +114,19 @@ def lm_params_from_numpy(cfg, tree, device: torch.device | str = "cuda") -> dict
             out[name] = torch.as_tensor(np.array(a), device=device)
 
     for path, a in _leaves(tree):
-        if path[0] in ("embedding", "unembed", "final_norm"):
+        top, part = path[0], path[1] if len(path) > 1 else ""
+        if top in ("embedding", "unembed", "final_norm", "enc_norm"):
             put(".".join(path), a)
-        elif path[:2] == ("stack", "periods") and len(path) > 3:
+        elif top in layout and part == "periods" and len(path) > 3:
+            pre, per, _ = layout[top]
             i = int(path[2].removeprefix("b"))
             for period in range(np.shape(a)[0]):
-                put(".".join(("stack", str(period * n_p + i), *path[3:])), a[period])
+                put(".".join((top, str(pre + period * per + i), *path[3:])), a[period])
+        elif top == "stack" and part.startswith("prefix") and len(path) > 2:
+            put(".".join((top, part.removeprefix("prefix"), *path[2:])), a)
+        elif top == "stack" and part.startswith("remainder") and len(path) > 2:
+            layer = layout[top][2] + int(part.removeprefix("remainder"))
+            put(".".join((top, str(layer), *path[2:])), a)
         else:
             raise NotImplementedError(
                 f"parameter {'/'.join(path)} belongs to a part of the model that is not "

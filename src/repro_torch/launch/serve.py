@@ -1,15 +1,18 @@
 """Serving entry point: initialise a model at random and serve batched generations.
 
-The port of ``repro.launch.serve``. On the CPU, with the smoke config:
+The port of ``repro.launch.serve``; the default architecture is
+``gemma3-1b``, as there. On the CPU, with the smoke config:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
-On the GPU (the default device), the full rwkv6-3b:
+On the GPU (the default device), the full deepseek-moe-16b or rwkv6-3b:
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --batch 8 \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --batch 8 \
       --prompt-len 512 --max-new 32 --max-len 544
 
-Prompts are drawn from ``np.random.default_rng(seed)``. With ``--ckpt-dir``
+Prompts are drawn from ``np.random.default_rng(seed)``. An audio model
+(whisper-base) gets zero frames of its encoder's length, as ``repro``'s
+server passes them. With ``--ckpt-dir``
 the model's parameters come from the directory's latest checkpoint when it
 has one; otherwise the freshly initialised parameters are saved there as
 step 0, so a later run serves the same weights.
@@ -44,7 +47,7 @@ def load_or_save_params(model: torch.nn.Module, ckpt_dir: str) -> int | None:
 
 def main(argv: list[str] | None = None) -> torch.Tensor:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="rwkv6-3b")
+    ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
@@ -67,8 +70,12 @@ def main(argv: list[str] | None = None) -> torch.Tensor:
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab, (args.batch, args.prompt_len), dtype=np.int64
     )
+    extras = None
+    if cfg.frontend == "audio_stub":
+        extras = {"frames": torch.zeros((args.batch, cfg.enc_seq, cfg.d_model),
+                                        device=model.device)}
     t0 = time.perf_counter()
-    out = engine.generate(prompts, args.max_new)
+    out = engine.generate(prompts, args.max_new, extras)
     if out.is_cuda:
         torch.cuda.synchronize(out.device)
     dt = time.perf_counter() - t0

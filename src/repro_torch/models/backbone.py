@@ -1,15 +1,18 @@
-"""Block stack: the port of ``repro.models.backbone`` for RWKV-6 blocks.
+"""Block stack: the port of ``repro.models.backbone``.
 
-``repro`` stacks the parameters of its repeating period along a leading
-``[n_periods]`` axis and scans over it. The port unrolls that scan: ``Stack``
-is an ``nn.ModuleList`` of ``n_layers`` blocks, layer ``p * len(period) + i``
-being block ``i`` of period ``p``, and its forward is a Python loop.
-Caches are a list with one dict per layer.
+``repro`` builds a model as ``prefix_layers`` (unrolled), ``n_periods``
+repetitions of ``period`` (one ``lax.scan`` over parameters stacked along a
+leading ``[n_periods]`` axis) and ``remainder`` (unrolled). The port unrolls
+the scan: ``Stack`` is an ``nn.ModuleList`` of ``n_layers`` blocks in that
+order, layer ``len(prefix) + p * len(period) + i`` being block ``i`` of
+period ``p``, and its forward is a Python loop. Caches are a list with one
+dict per layer.
 
-Ported so far: blocks of kind ``rwkv6`` with a dense FFN. Other block kinds,
-``shared`` blocks, ``post_block_norm`` and the ``prefix_layers``/``remainder``
-blocks raise ``NotImplementedError`` (ROADMAP queue 1, 'LM remainder'), and
-so do cross-attention blocks (the model refuses encoders).
+Ported: blocks of kind ``attn`` (with their sliding windows) and ``rwkv6``,
+each with a dense, MoE (plus shared experts) or no FFN, ``post_block_norm``
+and cross-attention to an encoder's output. ``mla``, ``mamba2`` and
+``shared`` blocks raise ``NotImplementedError`` (ROADMAP queue 1, 'LM
+remainder'), and so does ``moe_impl="sharded"``.
 """
 
 from __future__ import annotations
@@ -17,68 +20,154 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.layers import MLP, RMSNorm
+from repro_torch.models.layers import MLP, RMSNorm, dt, mlp
 
-__all__ = ["Block", "Stack", "check_ported"]
+__all__ = ["Block", "Stack", "check_ported", "init_block_cache"]
 
 _LATER = "is not ported to repro_torch yet (ROADMAP queue 1, 'LM remainder')"
 
 
-def check_ported(cfg: ModelConfig) -> None:
+def check_ported(cfg: ModelConfig, moe_impl: str = "local") -> None:
     """Raise ``NotImplementedError`` for what the port's stack cannot build."""
     for spec in (*cfg.prefix_layers, *cfg.period, *cfg.remainder):
-        if spec.kind != "rwkv6":
+        if spec.kind not in ("attn", "rwkv6"):
             raise NotImplementedError(f"block kind {spec.kind!r} {_LATER}")
-        if spec.ffn != "dense":
-            raise NotImplementedError(f"ffn {spec.ffn!r} {_LATER}")
         if spec.shared:
             raise NotImplementedError(f"a shared block {_LATER}")
-    if cfg.prefix_layers or cfg.remainder:
-        raise NotImplementedError(f"prefix_layers / remainder {_LATER}")
-    if cfg.post_block_norm:
-        raise NotImplementedError(f"post_block_norm {_LATER}")
+    if moe_impl != "local":
+        raise NotImplementedError(f"moe_impl={moe_impl!r} (expert-parallel MoE) {_LATER}")
+
+
+def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int, dtype,
+                     device) -> dict[str, torch.Tensor]:
+    """A KV ring for an attention block (``min(window, max_len)`` slots), the
+    float32 state for an RWKV-6 block."""
+    if spec.kind == "attn":
+        return attn_mod.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim, spec.window,
+                                      dtype, device)
+    return rwkv_mod.init_state(batch, cfg, device)
 
 
 class Block(nn.Module):
-    """pre_norm -> inner (time mix) -> residual; ffn_norm -> ffn -> residual."""
+    """pre_norm -> inner -> [post_norm] -> residual; [cross_norm -> cross
+    attention -> residual]; ffn_norm -> ffn (+ shared experts) ->
+    [ffn_post_norm] -> residual. ``repro``'s ``init_block`` /
+    ``apply_block``, with its parameter names."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, gen: torch.Generator):
+    def __init__(self, spec: BlockSpec, cfg: ModelConfig, dtype, device, gen: torch.Generator,
+                 cross: bool = False):
         super().__init__()
-        self.pre_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.inner = rwkv_mod.RWKV6(cfg, dtype, device, gen)
-        self.ffn_norm = RMSNorm(cfg.d_model, cfg.norm_eps, device)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, dtype, device, gen)
+        self.spec = spec
+        self.cfg = cfg
+        d = cfg.d_model
+        self.pre_norm = RMSNorm(d, cfg.norm_eps, device)
+        if spec.kind == "attn":
+            self.inner = attn_mod.Attention(cfg, dtype, device, gen)
+        else:
+            self.inner = rwkv_mod.RWKV6(cfg, dtype, device, gen)
+        if cross:
+            self.cross_norm = RMSNorm(d, cfg.norm_eps, device)
+            self.cross = attn_mod.Attention(cfg, dtype, device, gen)
+        if cfg.post_block_norm:
+            self.post_norm = RMSNorm(d, cfg.norm_eps, device)
+        if spec.ffn != "none":
+            self.ffn_norm = RMSNorm(d, cfg.norm_eps, device)
+            if spec.ffn == "dense":
+                self.ffn = MLP(d, cfg.d_ff, dtype, device, gen)
+            else:
+                self.ffn = moe_mod.MoE(cfg, dtype, device, gen)
+                if cfg.n_shared_experts:
+                    self.ffn_shared = MLP(d, cfg.n_shared_experts * cfg.moe_d_ff, dtype, device,
+                                          gen)
+            if cfg.post_block_norm:
+                self.ffn_post_norm = RMSNorm(d, cfg.norm_eps, device)
 
-    def forward(self, x, cache: dict | None, sequential: bool = False, use_kernel: bool = False):
+    def forward(self, x, positions, cache: dict | None, enc_out=None, sequential: bool = False,
+                use_kernel: bool = False):
+        """(x, new cache or {}, aux). ``aux`` holds ``moe_load`` [E] for a MoE
+        block. ``sequential`` and ``use_kernel`` reach RWKV-6 blocks only."""
+        spec, cfg = self.spec, self.cfg
+        aux = {}
         h = self.pre_norm(x)
-        out, new_cache = self.inner(h, cache or None, sequential, use_kernel)
+        if spec.kind == "attn":
+            out, new_cache = attn_mod.attention_layer(self.inner, h, positions, cfg,
+                                                      window=spec.window, cache=cache or None)
+        else:
+            out, new_cache = self.inner(h, cache or None, sequential, use_kernel)
+        if cfg.post_block_norm:
+            out = self.post_norm(out)
         x = x + out
-        x = x + self.ffn(self.ffn_norm(x))
-        return x, ({} if new_cache is None else new_cache)
+
+        if hasattr(self, "cross") and enc_out is not None:
+            hc = self.cross_norm(x)
+            ck = attn_mod.project_heads(enc_out, self.cross.wk)
+            cv = attn_mod.project_heads(enc_out, self.cross.wv)
+            out, _ = attn_mod.attention_layer(self.cross, hc, positions, cfg, window=None,
+                                              cross_kv=(ck, cv))
+            x = x + out
+
+        if spec.ffn != "none":
+            h2 = self.ffn_norm(x)
+            if spec.ffn == "dense":
+                out2 = mlp(self.ffn, h2)
+            else:
+                b, s, d = h2.shape
+                y, moe_aux = moe_mod.moe_local(self.ffn, h2.reshape(b * s, d), cfg)
+                out2 = y.reshape(b, s, d)
+                aux["moe_load"] = moe_aux["load"]
+                if cfg.n_shared_experts:
+                    out2 = out2 + mlp(self.ffn_shared, h2)
+            if cfg.post_block_norm:
+                out2 = self.ffn_post_norm(out2)
+            x = x + out2
+        return x, ({} if new_cache is None else new_cache), aux
 
 
 class Stack(nn.ModuleList):
-    """The ``n_layers`` blocks of one model, in order."""
+    """The ``n_layers`` blocks of one model, in order: prefix, periods, remainder."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, gen: torch.Generator):
-        check_ported(cfg)  # every block of the period is an rwkv6 block with a dense FFN
-        super().__init__(Block(cfg, dtype, device, gen) for _ in range(cfg.n_layers))
+    def __init__(self, cfg: ModelConfig, dtype, device, gen: torch.Generator, cross: bool = False):
+        check_ported(cfg)
+        specs = (*cfg.prefix_layers, *cfg.period * cfg.n_periods, *cfg.remainder)
+        super().__init__(Block(spec, cfg, dtype, device, gen, cross) for spec in specs)
         self.cfg = cfg
 
-    def init_caches(self, batch: int, max_len: int) -> list[dict[str, torch.Tensor]]:
-        """One cache per layer; RWKV-6 state does not grow with ``max_len``."""
+    def init_caches(self, batch: int, max_len: int, dtype=None) -> list[dict[str, torch.Tensor]]:
+        """One cache per layer: a KV ring for attention (in ``dtype``, the
+        parameter dtype by default), the float32 state for RWKV-6."""
         device = self[0].pre_norm.scale.device
-        return [rwkv_mod.init_state(batch, self.cfg, device) for _ in self]
+        dtype = dtype or dt(self.cfg.param_dtype)
+        return [init_block_cache(block.spec, self.cfg, batch, max_len, dtype, device)
+                for block in self]
 
-    def forward(self, x, positions, caches: list | None = None, sequential: bool = False,
-                use_kernel: bool = False):
-        """``repro``'s ``Stack.apply``: (x, new caches or None). ``positions``
-        are for RoPE, which RWKV-6 blocks do not use."""
+    def forward(self, x, positions, caches: list | None = None, enc_out=None,
+                sequential: bool = False, use_kernel: bool = False):
+        """``repro``'s ``Stack.apply``: (x, new caches or None, aux). ``aux``
+        holds, when the stack has MoE blocks, ``moe_load`` [E] summed over
+        every layer and ``moe_load_periods`` [n_periods, E], each period's
+        MoE blocks summed."""
+        cfg = self.cfg
+        n_pre, n_p = len(cfg.prefix_layers), len(cfg.period)
         new_caches = [] if caches is not None else None
+        aux: dict[str, torch.Tensor] = {}
+        period_loads: list[torch.Tensor | None] = [None] * cfg.n_periods
         for i, block in enumerate(self):
-            x, nc = block(x, caches[i] if caches is not None else None, sequential, use_kernel)
+            x, nc, block_aux = block(x, positions, caches[i] if caches is not None else None,
+                                     enc_out, sequential, use_kernel)
             if caches is not None:
                 new_caches.append(nc)
-        return x, new_caches
+            load = block_aux.get("moe_load")
+            if load is None:
+                continue
+            aux["moe_load"] = load if "moe_load" not in aux else aux["moe_load"] + load
+            period = (i - n_pre) // n_p
+            if i >= n_pre and period < cfg.n_periods:
+                prev = period_loads[period]
+                period_loads[period] = load if prev is None else prev + load
+        if any(load is not None for load in period_loads):
+            aux["moe_load_periods"] = torch.stack(period_loads)
+        return x, new_caches, aux

@@ -1,4 +1,4 @@
-"""Shared primitive layers: RMSNorm, embeddings, the gated MLP.
+"""Shared primitive layers: RMSNorm, RoPE, embeddings, the gated MLP, softcap.
 
 The port's counterparts of ``repro.models.layers``. Each layer is an
 ``nn.Module`` holding the parameters of ``repro``'s ``init_<layer>`` under the
@@ -6,7 +6,7 @@ same names (so ``convert.lm_params_from_numpy`` maps one tree onto the other),
 drawn from an explicit ``torch.Generator`` with the same distributions and
 scales, and a function that applies it with ``repro``'s dtype rules: a
 product of two dtypes runs in the wider one, as JAX promotes it
-(:func:`matmul`). RoPE waits for the attention families.
+(:func:`matmul`).
 """
 
 from __future__ import annotations
@@ -15,8 +15,8 @@ import torch
 from torch import nn
 
 __all__ = [
-    "DTYPES", "MLP", "Embedding", "RMSNorm", "dt", "embed", "matmul", "mlp", "normal_param",
-    "rmsnorm", "silu", "unembed",
+    "DTYPES", "MLP", "Embedding", "RMSNorm", "apply_rope", "dt", "embed", "gelu", "matmul", "mlp",
+    "normal_param", "rmsnorm", "rope_freqs", "silu", "softcap", "unembed",
 ]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -51,6 +51,14 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh approximation), op by op in the
+    tensor's dtype as :func:`silu` is."""
+    sqrt_2_over_pi = torch.tensor((2 / torch.pi) ** 0.5, dtype=x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(sqrt_2_over_pi * (x + 0.044715 * x**3)))
+    return x * cdf
+
+
 # ---------------------------------------------------------------------------
 # RMSNorm (gemma variant: the scale enters as 1 + scale)
 # ---------------------------------------------------------------------------
@@ -70,6 +78,25 @@ class RMSNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm(self.scale, x, self.eps)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                            / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [B, S, H, D]; positions: [B, S] integers. Rotates pairs (split-half:
+    element i with element i + D/2), in float32, back in ``x``'s dtype."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)  # [D/2]
+    angles = positions[..., None].float() * freqs  # [B, S, D/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -99,7 +126,7 @@ def unembed(table: torch.Tensor, x: torch.Tensor, softcap: float | None = None) 
 
 
 # ---------------------------------------------------------------------------
-# Gated MLP (SwiGLU)
+# Gated MLP (SwiGLU / GeGLU)
 # ---------------------------------------------------------------------------
 class MLP(nn.Module):
     def __init__(self, d: int, d_ff: int, dtype, device, gen: torch.Generator):
@@ -112,9 +139,16 @@ class MLP(nn.Module):
         return mlp(self, x)
 
 
-def mlp(params: MLP, x: torch.Tensor) -> torch.Tensor:
+def mlp(params: MLP, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     gate = matmul(x, params.wi_gate)
     up = matmul(x, params.wi_up)
+    gate = gelu(gate) if act == "gelu" else silu(gate)
     # the down projection comes out in the input dtype (repro's
     # preferred_element_type=x.dtype)
-    return matmul(silu(gate) * up, params.wo).to(x.dtype)
+    return matmul(gate * up, params.wo).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)

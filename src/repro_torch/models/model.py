@@ -3,24 +3,34 @@
 The port of ``repro.models.model``. ``build_model(cfg, device=...)`` returns
 a ``Model`` (an ``nn.Module`` holding its parameters) with
 
-  forward(tokens, positions, caches)       -> (h, caches)
-  prefill(tokens, caches)                  -> (logits [B, 1, V], caches)
+  forward(tokens, positions, caches, batch) -> (h, caches, aux)
+  prefill(tokens, caches, batch)           -> (logits [B, 1, V], caches)
   decode_step(tokens, pos, caches)         -> (logits [B, 1, V], caches)
-  init_caches(batch, max_len)              -> {"stack": [per-layer dict]}
+  init_caches(batch, max_len)              -> {"stack": [per-layer dict], "enc_out"?}
+
+Modality frontends are stubs, as in ``repro``: audio (whisper) takes
+precomputed frame embeddings ``batch["frames"]`` [B, enc_seq, D] through an
+encoder stack of causal attention blocks, whose output the decoder's
+cross-attention reads and the caches carry into decode; vision (internvl2)
+takes precomputed patch embeddings ``batch["prefix_embeddings"]`` [B,
+n_prefix, D], which overwrite the first ``n_prefix`` token embeddings.
 
 ``rwkv_kernel`` (default True) runs each prefill chunk of every RWKV-6 layer
 through the ``rwkv6_chunk`` CUDA kernel on the card; ``rwkv_kernel=False``
 runs its plain version there instead (the yardstick). On the CPU both run
-the plain version. ``loss`` and ``cross_entropy`` come with the training
-slice (ROADMAP queue 1, 'LM remainder').
+the plain version. Attention and the MoE dispatch run in plain PyTorch, as
+``repro`` runs them in plain ``jnp``. MTP, ``loss`` and ``cross_entropy``
+come with the training slice (ROADMAP queue 1, 'LM remainder').
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import backbone as bb
 from repro_torch.models import layers as L
@@ -29,69 +39,113 @@ __all__ = ["Model", "build_model"]
 
 
 class Model(nn.Module):
-    def __init__(self, cfg: ModelConfig, device, rwkv_kernel: bool = True, seed: int = 0):
+    def __init__(self, cfg: ModelConfig, device, rwkv_kernel: bool = True, seed: int = 0,
+                 moe_impl: str = "local"):
         super().__init__()
-        if cfg.n_enc_layers or cfg.mtp_depth or cfg.frontend != "none":
+        bb.check_ported(cfg, moe_impl)
+        if cfg.mtp_depth:
             raise NotImplementedError(
-                f"{cfg.name}: encoders, MTP and modality frontends are not ported to "
-                "repro_torch yet (ROADMAP queue 1, 'LM remainder')"
+                f"{cfg.name}: MTP is not ported to repro_torch yet (ROADMAP queue 1, "
+                "'LM remainder')"
             )
         self.cfg = cfg
         self.rwkv_kernel = rwkv_kernel
         dtype = L.dt(cfg.param_dtype)
         gen = torch.Generator(device=device).manual_seed(seed)
         self.embedding = L.Embedding(cfg.vocab, cfg.d_model, dtype, device, gen)
-        self.stack = bb.Stack(cfg, dtype, device, gen)
+        self.stack = bb.Stack(cfg, dtype, device, gen, cross=cfg.n_enc_layers > 0)
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
         if not cfg.tie_embeddings:
             self.unembed = L.Embedding(cfg.vocab, cfg.d_model, dtype, device, gen)
+        if cfg.n_enc_layers:
+            enc_cfg = dataclasses.replace(cfg, period=(BlockSpec(kind="attn", ffn="dense"),),
+                                          n_periods=cfg.n_enc_layers, prefix_layers=(),
+                                          remainder=())
+            self.encoder = bb.Stack(enc_cfg, dtype, device, gen)
+            self.enc_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
 
     @property
     def device(self) -> torch.device:
         return self.embedding.table.device
 
     # -- pieces --------------------------------------------------------------
+    def _embed(self, tokens: torch.Tensor, batch: dict | None) -> torch.Tensor:
+        cfg = self.cfg
+        x = L.embed(self.embedding.table, tokens, cfg.scale_embeddings, cfg.d_model)
+        if cfg.frontend == "vision_stub" and batch is not None and "prefix_embeddings" in batch:
+            n = cfg.n_prefix_embeddings
+            pre = batch["prefix_embeddings"].to(x.dtype)
+            x = torch.cat([pre, x[:, n:]], dim=1)
+        return x
+
+    def _encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """Audio stub frontend: frames are precomputed embeddings [B, T, D]."""
+        pos = torch.arange(frames.shape[1], device=frames.device).expand(frames.shape[:2])
+        h, _, _ = self.encoder(frames.to(L.dt(self.cfg.compute_dtype)), pos)
+        return self.enc_norm(h)
+
     def _unembed(self, h: torch.Tensor) -> torch.Tensor:
         table = self.embedding.table if self.cfg.tie_embeddings else self.unembed.table
         return L.unembed(table, h, self.cfg.final_softcap)
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor, caches: dict | None = None,
-                sequential: bool = False):
-        """(final-normed hidden states [B, S, D], new caches or None).
-        ``sequential=True`` runs every RWKV-6 layer's sequential oracle
-        instead of the chunked prefill."""
+                batch: dict | None = None, sequential: bool = False):
+        """(final-normed hidden states [B, S, D], new caches or None, aux).
+        ``batch`` carries the frontends' inputs (``frames``,
+        ``prefix_embeddings``: tensors or arrays). ``sequential=True`` runs
+        every RWKV-6 layer's sequential oracle instead of the chunked prefill."""
         cfg = self.cfg
-        x = L.embed(self.embedding.table, tokens, cfg.scale_embeddings, cfg.d_model)
-        x = x.to(L.dt(cfg.compute_dtype))
+        if batch is not None:
+            batch = {k: torch.as_tensor(v, device=tokens.device) for k, v in batch.items()}
+        x = self._embed(tokens, batch).to(L.dt(cfg.compute_dtype))
+        enc_out = None
+        if cfg.n_enc_layers and batch is not None and "frames" in batch:
+            enc_out = self._encode(batch["frames"])
+        elif caches is not None and caches.get("enc_out") is not None:
+            enc_out = caches["enc_out"]
         stack_caches = caches["stack"] if caches is not None else None
-        h, new_stack_caches = self.stack(x, positions, stack_caches, sequential, self.rwkv_kernel)
+        h, new_stack_caches, aux = self.stack(x, positions, stack_caches, enc_out, sequential,
+                                              self.rwkv_kernel)
         h = self.final_norm(h)
         new_caches = None
         if caches is not None:
             new_caches = dict(caches)
             new_caches["stack"] = new_stack_caches
-        return h, new_caches
+            if enc_out is not None:
+                new_caches["enc_out"] = enc_out
+        return h, new_caches, aux
 
     # -- entry points -----------------------------------------------------------
-    def init_caches(self, batch: int, max_len: int) -> dict:
-        return {"stack": self.stack.init_caches(batch, max_len)}
+    def init_caches(self, batch: int, max_len: int, dtype=None) -> dict:
+        """Per-layer caches (attention KV in ``dtype``, the parameter dtype
+        by default), and a zero ``enc_out`` for an encoder-decoder."""
+        cfg = self.cfg
+        dtype = dtype or L.dt(cfg.param_dtype)
+        caches = {"stack": self.stack.init_caches(batch, max_len, dtype)}
+        if cfg.n_enc_layers:
+            caches["enc_out"] = torch.zeros((batch, cfg.enc_seq, cfg.d_model), dtype=dtype,
+                                            device=self.device)
+        return caches
 
-    def prefill(self, tokens: torch.Tensor, caches: dict, sequential: bool = False):
+    def prefill(self, tokens: torch.Tensor, caches: dict, batch: dict | None = None,
+                sequential: bool = False):
         pos = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
-        h, caches = self.forward(tokens, pos, caches, sequential)
+        h, caches, _ = self.forward(tokens, pos, caches, batch, sequential)
         return self._unembed(h[:, -1:]), caches
 
     def decode_step(self, tokens: torch.Tensor, pos: torch.Tensor, caches: dict):
         """tokens: [B, 1]; pos: [B, 1] absolute positions."""
-        h, caches = self.forward(tokens, pos, caches)
+        h, caches, _ = self.forward(tokens, pos, caches)
         return self._unembed(h), caches
 
 
 def build_model(cfg: ModelConfig, device: torch.device | str = "cuda", rwkv_kernel: bool = True,
-                seed: int = 0) -> Model:
+                seed: int = 0, moe_impl: str = "local") -> Model:
     """A ``Model`` initialised at random on ``device`` (the card unless the
     caller asks for the CPU) from ``torch.Generator(device).manual_seed(seed)``,
     with the distributions and scales of ``repro``'s init. Parameters do not
-    require gradients: this is the serving path."""
-    model = Model(cfg, resolve_device(device), rwkv_kernel=rwkv_kernel, seed=seed)
+    require gradients: this is the serving path. ``moe_impl="sharded"``
+    (``repro``'s expert-parallel MoE) is not ported yet."""
+    model = Model(cfg, resolve_device(device), rwkv_kernel=rwkv_kernel, seed=seed,
+                  moe_impl=moe_impl)
     return model.requires_grad_(False)

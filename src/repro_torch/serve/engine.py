@@ -34,9 +34,11 @@ class Engine:
         self.cfg = cfg
 
     @torch.inference_mode()
-    def generate(self, tokens, max_new: int) -> torch.Tensor:
+    def generate(self, tokens, max_new: int, batch_extras: dict | None = None) -> torch.Tensor:
         """tokens: [B, S_prompt] integers (a tensor or an array; right-aligned,
-        no padding). Returns [B, max_new] int64 on the model's device."""
+        no padding). ``batch_extras`` goes to the prefill: the frontends'
+        ``frames`` (audio) or ``prefix_embeddings`` (vision). Returns
+        [B, max_new] int64 on the model's device."""
         dev = self.model.device
         tokens = torch.as_tensor(tokens, device=dev).long()
         b, s = tokens.shape
@@ -50,7 +52,7 @@ class Engine:
                 f"({self.cfg.max_len}): decode would run off the KV cache"
             )
         caches = self.model.init_caches(b, self.cfg.max_len)
-        logits, caches = self.model.prefill(tokens, caches)
+        logits, caches = self.model.prefill(tokens, caches, batch_extras)
         gen = None
         if self.cfg.temperature > 0.0:
             gen = torch.Generator(device=dev).manual_seed(self.cfg.seed)

@@ -226,8 +226,8 @@ def test_ckpt_dir_saves_then_restores_the_same_weights(tmp_path, capsys):
     want = Engine(model_a, ServeConfig(max_len=24)).generate(toks, 8)
     assert torch.equal(Engine(model_b, ServeConfig(max_len=24)).generate(toks, 8), want)
 
-    argv = ["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "6",
-            "--max-new", "6", "--max-len", "16", "--seed", "1", "--ckpt-dir", d]
+    argv = ["--arch", "rwkv6-3b", "--smoke", "--device", "cpu", "--batch", "2", "--prompt-len",
+            "6", "--max-new", "6", "--max-len", "16", "--seed", "1", "--ckpt-dir", d]
     out = serve_cli.main(argv)  # seed 1's init, seed 0's weights from the directory
     assert "loaded checkpoint step 0" in capsys.readouterr().out
     prompts = np.random.default_rng(1).integers(0, cfg.vocab, (2, 6), dtype=np.int64)

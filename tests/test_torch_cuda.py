@@ -34,8 +34,11 @@ from repro_torch.kernels.cam_match import ops as cam_ops
 from repro_torch.kernels.fabric_deliver import ops as fabric_ops
 from repro_torch.kernels.fused_deliver import ops as fused_ops
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops
+from repro_torch.models import attention as at
+from repro_torch.models import moe
 from repro_torch.models.model import build_model
 from repro_torch.serve.aer import AerServeConfig, AerSessionPool, DvsSession, build_poker_engine
+from repro_torch.serve.engine import Engine, ServeConfig
 
 pytestmark = pytest.mark.cuda
 
@@ -770,3 +773,79 @@ def test_cuda_engine_step_never_waits_on_the_device(cuda, backend):
     for pool, out in zip(pools, outs):
         pool.finish_step(out)
     assert ms < 100.0, f"{backend}: launching the step took {ms:.1f} ms of a 200 ms spin"
+
+
+# ---------------------------------------------------------------------------
+# attention and MoE serving: plain PyTorch on the card, held to the CPU
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("window,softcap", [(None, None), (64, None), (None, 30.0)])
+def test_cuda_attend_chunked_matches_dense_and_the_cpu(cuda, window, softcap):
+    """float32, GQA 8/2, S = 1100 (two blocks of 1024, the second padded):
+    chunked against dense on the card allclose(rtol=1e-5, atol=2e-5), and the
+    card's dense against the CPU's."""
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(2, 1100, 8, 32)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 1100, 2, 32)).astype(np.float32) for _ in range(2))
+    pos = np.broadcast_to(np.arange(1100)[None], (2, 1100)).copy()
+    kw = dict(window=window, scale=32**-0.5, softcap=softcap)
+    on = [torch.as_tensor(a, device=cuda) for a in (q, k, v, pos, pos)]
+    dense = at.attend_dense(*on, **kw)
+    torch.testing.assert_close(at.attend_chunked(*on, **kw), dense, rtol=1e-5, atol=2e-5)
+    cpu = at.attend_dense(*(torch.as_tensor(a) for a in (q, k, v, pos, pos)), **kw)
+    torch.testing.assert_close(dense.cpu(), cpu, rtol=1e-5, atol=2e-5)
+
+
+def test_cuda_moe_local_matches_the_cpu_and_the_reference(cuda):
+    """deepseek-moe-16b's routing (64 experts, top-6, capacity 1.25) at a
+    narrow width: float32 on the card equals the CPU (routing, loads and kept
+    slots exactly, outputs allclose(rtol=1e-5, atol=1e-5)); in bfloat16 at
+    capacity T * k, ``moe_local`` within 2**-5 of ``moe_reference``'s
+    largest output."""
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), d_model=64, moe_d_ff=32)
+    layer = moe.MoE(cfg, torch.float32, "cpu", torch.Generator().manual_seed(0))
+    layer.requires_grad_(False)
+    x = torch.as_tensor(np.random.default_rng(1).normal(size=(256, 64)).astype(np.float32))
+    with torch.inference_mode():
+        y_cpu, aux_cpu = moe.moe_local(layer, x, cfg)
+        y, aux = moe.moe_local(layer.to(cuda), x.to(cuda), cfg)
+        assert torch.equal(aux["load"].cpu(), aux_cpu["load"])
+        assert int(aux["load"].max()) > moe.expert_capacity(cfg, 256)  # some expert drops
+        torch.testing.assert_close(y.cpu(), y_cpu, rtol=1e-5, atol=1e-5)
+        layer_bf16 = moe.MoE(cfg, torch.bfloat16, cuda, torch.Generator(cuda).manual_seed(0))
+        assert layer_bf16.router.dtype == torch.float32
+        xb = x.to(cuda, torch.bfloat16)
+        yb, _ = moe.moe_local(layer_bf16, xb, cfg, capacity=256 * cfg.top_k)
+        ref, _ = moe.moe_reference(layer_bf16, xb, cfg)
+    err = float((yb.float() - ref.float()).abs().max() / ref.float().abs().max())
+    assert err <= 2.0**-5, err
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "gemma2-27b", "gemma3-1b", "glm4-9b",
+                                  "internvl2-76b", "whisper-base", "yi-34b"])
+def test_cuda_smoke_arch_serves_as_on_the_cpu(cuda, arch):
+    """Each attention / MoE smoke config (float32) with the CPU model's
+    weights on the card: prefill logits allclose(rtol=1e-4, atol=1e-4) and
+    greedy tokens through ``Engine.generate`` (with the frontends' inputs)
+    equal the CPU's; no kernel of the port is launched."""
+    cfg = get_config(arch, smoke=True)
+    cpu_model = build_model(cfg, device="cpu", seed=0)
+    model = build_model(cfg, device=cuda, seed=5)
+    model.load_state_dict(cpu_model.state_dict())
+    rng = np.random.default_rng(2)
+    toks = rng.integers(0, cfg.vocab, (2, 11))
+    extras = None
+    if cfg.frontend == "audio_stub":
+        extras = {"frames": rng.normal(size=(2, cfg.enc_seq, cfg.d_model)).astype(np.float32)}
+    if cfg.frontend == "vision_stub":
+        extras = {"prefix_embeddings": rng.normal(
+            size=(2, cfg.n_prefix_embeddings, cfg.d_model)).astype(np.float32)}
+    before = {fn: fn.launches for fn in (cam_ops.cam_match, fused_ops.fused_deliver,
+                                         fabric_ops.fabric_deliver, rwkv_ops.rwkv6_chunk)}
+    with torch.inference_mode():
+        got, _ = model.prefill(torch.as_tensor(toks, device=cuda), model.init_caches(2, 24), extras)
+        want, _ = cpu_model.prefill(torch.as_tensor(toks), cpu_model.init_caches(2, 24), extras)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    out = Engine(model, ServeConfig(max_len=24)).generate(toks, 8, extras)
+    assert out.is_cuda
+    assert torch.equal(out.cpu(), Engine(cpu_model, ServeConfig(max_len=24)).generate(toks, 8, extras))
+    assert all(fn.launches == n for fn, n in before.items())

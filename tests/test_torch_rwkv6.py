@@ -224,7 +224,8 @@ def test_smoke_model_bf16_matches_repro():
             jx, jst, _ = j_bb.apply_block(jp, cfg_j.period[0], cfg_j, x[:, :s], None,
                                           jax.tree.map(jnp.asarray, st))
             with torch.inference_mode():
-                tx, tst = model.stack[layer](xt[:, :s], {k: torch.as_tensor(v) for k, v in st.items()})
+                tx, tst, _ = model.stack[layer](xt[:, :s], None,
+                                                {k: torch.as_tensor(v) for k, v in st.items()})
             assert tx.dtype == torch.bfloat16
             np.testing.assert_allclose(tx.float().numpy(), np.asarray(jx.astype(jnp.float32)),
                                        rtol=BF16_ULP, atol=1e-6)
@@ -311,13 +312,15 @@ def test_serve_cli_runs_the_smoke_model_on_the_cpu(capsys, tmp_path):
     assert out.shape == (2, 5) and out.device.type == "cpu"
     assert "generated (2, 5) on cpu" in capsys.readouterr().out
     # --ckpt-dir is ported (tests/test_torch_checkpoint.py): saved, then loaded
-    ckpt = ["--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "11",
-            "--max-new", "5", "--ckpt-dir", str(tmp_path / "ckpt")]
+    ckpt = ["--arch", "rwkv6-3b", "--smoke", "--device", "cpu", "--batch", "2", "--prompt-len",
+            "11", "--max-new", "5", "--ckpt-dir", str(tmp_path / "ckpt")]
     assert torch.equal(serve_cli.main(ckpt), out)
     assert torch.equal(serve_cli.main(ckpt), out)
     assert "loaded checkpoint step 0" in capsys.readouterr().out
+    # gemma3-1b (the default arch, as in repro) is ported now; zamba2-2.7b is not
+    assert serve_cli.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu"]).shape == (4, 16)
     with pytest.raises(NotImplementedError, match="LM remainder"):
-        serve_cli.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu"])
+        serve_cli.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu"])
 
 
 def _port_config(jcfg) -> ModelConfig:
@@ -336,7 +339,7 @@ def test_config_schema_and_param_count_match_repro(arch):
         assert dataclasses.asdict(port) == dataclasses.asdict(jcfg)
         assert port.param_count() == jcfg.param_count()
         assert port.n_layers == jcfg.n_layers
-        if arch == "rwkv6-3b":
+        if arch not in ("deepseek-v3-671b", "zamba2-2.7b"):  # MLA/MTP, Mamba2/shared blocks
             assert get_config(arch, smoke=smoke) == port
         else:
             with pytest.raises(NotImplementedError, match="LM remainder"):
@@ -345,15 +348,26 @@ def test_config_schema_and_param_count_match_repro(arch):
 
 def test_build_model_refuses_what_is_not_ported_and_needs_a_device():
     cfg = get_config("rwkv6-3b", smoke=True)
-    for bad in (
+    moe = dict(n_experts=4, top_k=2, moe_d_ff=16)
+    for ported in (  # attention, MoE FFNs, post-block norms and unrolled blocks build now
         dataclasses.replace(cfg, period=(BlockSpec(kind="attn"),)),
-        dataclasses.replace(cfg, period=(BlockSpec(kind="rwkv6", ffn="moe"),)),
+        dataclasses.replace(cfg, period=(BlockSpec(kind="rwkv6", ffn="moe"),), **moe),
         dataclasses.replace(cfg, post_block_norm=True),
         dataclasses.replace(cfg, remainder=(BlockSpec(kind="rwkv6"),)),
+    ):
+        assert len(build_model(ported, device="cpu").stack) == ported.n_layers
+    for bad in (
+        dataclasses.replace(cfg, period=(BlockSpec(kind="mla"),)),
+        dataclasses.replace(cfg, period=(BlockSpec(kind="mamba2"),)),
+        dataclasses.replace(cfg, period=(BlockSpec(kind="rwkv6"), BlockSpec(kind="attn",
+                                                                            shared=True))),
         dataclasses.replace(cfg, mtp_depth=1),
     ):
         with pytest.raises(NotImplementedError, match="LM remainder"):
             build_model(bad, device="cpu")
+    with pytest.raises(NotImplementedError, match="LM remainder"):
+        build_model(dataclasses.replace(cfg, period=(BlockSpec(kind="rwkv6", ffn="moe"),), **moe),
+                    device="cpu", moe_impl="sharded")
     if torch.cuda.is_available():
         assert build_model(cfg).device.type == "cuda"
     else:
@@ -393,5 +407,9 @@ def test_lm_params_from_numpy_unstacks_the_periods():
         np.testing.assert_array_equal(wr.float().numpy(), want)
         assert sd[f"stack.{layer}.inner.mu"].dtype == torch.float32
     model.load_state_dict(sd)
-    with pytest.raises(NotImplementedError, match="LM remainder"):
-        lm_params_from_numpy(cfg, {**tree, "mtp": {"proj": np.zeros((2, 2))}}, "cpu")
+    # MTP and zamba2's shared block are not ported yet (prefix, remainder and
+    # encoder blocks are: tests/test_torch_lm_archs.py)
+    for unported in ({"mtp": {"proj": np.zeros((2, 2))}},
+                     {"stack": {**tree["stack"], "shared_block": {"pre_norm": np.zeros(2)}}}):
+        with pytest.raises(NotImplementedError, match="LM remainder"):
+            lm_params_from_numpy(cfg, {**tree, **unported}, "cpu")
