@@ -1,10 +1,10 @@
 """Architecture registry: ``get_config(arch, smoke=False)``.
 
-``ARCHS`` names the ten architectures of ``repro.configs``. The port builds
-the blocks of eight of them (attention with a dense or MoE FFN, encoders,
-frontend stubs, RWKV-6); asking for ``deepseek-v3-671b`` (MLA, MTP) or
-``zamba2-2.7b`` (Mamba2, shared blocks) raises ``NotImplementedError``
-(ROADMAP queue 1, 'LM remainder').
+``ARCHS`` names the ten architectures of ``repro.configs``, each mapped to
+the port's field-for-field copy of its config module. The port builds the
+blocks of all ten: attention with a dense or MoE FFN, encoders, frontend
+stubs, RWKV-6, MLA with MTP (deepseek-v3-671b), Mamba2 with a shared
+attention block (zamba2-2.7b).
 """
 
 from __future__ import annotations
@@ -13,16 +13,16 @@ import importlib
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 
-# arch -> the port's config module, or None while its block kinds are not ported
-ARCHS: dict[str, str | None] = {
+# arch -> the port's config module
+ARCHS: dict[str, str] = {
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "glm4-9b": "repro_torch.configs.glm4_9b",
     "yi-34b": "repro_torch.configs.yi_34b",
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
-    "zamba2-2.7b": None,
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
     "whisper-base": "repro_torch.configs.whisper_base",
     "rwkv6-3b": "repro_torch.configs.rwkv6_3b",
-    "deepseek-v3-671b": None,
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
     "deepseek-moe-16b": "repro_torch.configs.deepseek_moe_16b",
     "internvl2-76b": "repro_torch.configs.internvl2_76b",
 }
@@ -31,13 +31,7 @@ ARCHS: dict[str, str | None] = {
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in ARCHS:
         raise KeyError(f"unknown architecture {arch!r}; have {sorted(ARCHS)}")
-    module = ARCHS[arch]
-    if module is None:
-        raise NotImplementedError(
-            f"{arch}: its block kinds are not ported to repro_torch yet "
-            "(ROADMAP queue 1, 'LM remainder')"
-        )
-    mod = importlib.import_module(module)
+    mod = importlib.import_module(ARCHS[arch])
     return mod.smoke() if smoke else mod.config()
 
 

@@ -95,11 +95,13 @@ def lm_params_from_numpy(cfg, tree, device: torch.device | str = "cuda") -> dict
     becomes layer ``i``, period ``p``'s block ``i`` layer ``len(prefix) + p *
     len(period) + i`` and ``remainder{i}`` the layer after the periods' last
     plus ``i``. The encoder (``encoder/periods/b0``, one block per period)
-    unstacks the same way, and the embeddings, the norms and every leaf
+    unstacks the same way. The shared block (``stack/shared_block``, one
+    parameter set), MTP (``mtp``), the embeddings, the norms and every leaf
     inside a block (MoE experts ``[E, ...]``, shared experts, q/k norms,
-    cross-attention, post-block norms) keep their names. Every array keeps
-    its dtype (bfloat16 stays bfloat16) and lands on ``device``, the card
-    unless the caller asks for the CPU.
+    cross-attention, post-block norms, MLA and Mamba2 parameters) keep their
+    names. Every array keeps its dtype (bfloat16 stays bfloat16) and lands
+    on ``device``, the card unless the caller asks for the CPU. A leaf
+    outside ``repro``'s LM tree raises ``ValueError``.
     """
     device = resolve_device(device)
     n_pre, n_p = len(cfg.prefix_layers), len(cfg.period)
@@ -115,7 +117,8 @@ def lm_params_from_numpy(cfg, tree, device: torch.device | str = "cuda") -> dict
 
     for path, a in _leaves(tree):
         top, part = path[0], path[1] if len(path) > 1 else ""
-        if top in ("embedding", "unembed", "final_norm", "enc_norm"):
+        if top in ("embedding", "unembed", "final_norm", "enc_norm", "mtp") or (
+                top == "stack" and part == "shared_block"):
             put(".".join(path), a)
         elif top in layout and part == "periods" and len(path) > 3:
             pre, per, _ = layout[top]
@@ -128,10 +131,7 @@ def lm_params_from_numpy(cfg, tree, device: torch.device | str = "cuda") -> dict
             layer = layout[top][2] + int(part.removeprefix("remainder"))
             put(".".join((top, str(layer), *path[2:])), a)
         else:
-            raise NotImplementedError(
-                f"parameter {'/'.join(path)} belongs to a part of the model that is not "
-                "ported to repro_torch yet (ROADMAP queue 1, 'LM remainder')"
-            )
+            raise ValueError(f"parameter {'/'.join(path)} is not part of repro's LM tree")
     return out
 
 

@@ -1,1 +1,2 @@
-"""Language-model stack: layers, the RWKV-6 block, the backbone and the model."""
+"""Language-model stack: layers, attention, MLA, Mamba2, the RWKV-6 block, the MoE,
+the backbone and the model."""

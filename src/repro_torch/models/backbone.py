@@ -3,16 +3,19 @@
 ``repro`` builds a model as ``prefix_layers`` (unrolled), ``n_periods``
 repetitions of ``period`` (one ``lax.scan`` over parameters stacked along a
 leading ``[n_periods]`` axis) and ``remainder`` (unrolled). The port unrolls
-the scan: ``Stack`` is an ``nn.ModuleList`` of ``n_layers`` blocks in that
-order, layer ``len(prefix) + p * len(period) + i`` being block ``i`` of
-period ``p``, and its forward is a Python loop. Caches are a list with one
-dict per layer.
+the scan: ``Stack`` holds ``n_layers`` blocks in that order, layer
+``len(prefix) + p * len(period) + i`` being block ``i`` of period ``p``,
+and its forward is a Python loop. Caches are a list with one dict per layer.
 
-Ported: blocks of kind ``attn`` (with their sliding windows) and ``rwkv6``,
-each with a dense, MoE (plus shared experts) or no FFN, ``post_block_norm``
-and cross-attention to an encoder's output. ``mla``, ``mamba2`` and
-``shared`` blocks raise ``NotImplementedError`` (ROADMAP queue 1, 'LM
-remainder'), and so does ``moe_impl="sharded"``.
+Blocks of every kind are ported: ``attn`` (with its sliding window),
+``mla``, ``mamba2`` and ``rwkv6``, each with a dense, MoE (plus shared
+experts) or no FFN, ``post_block_norm`` and cross-attention to an encoder's
+output. A ``shared`` period block (zamba2) is one parameter set,
+``stack.shared_block`` as in ``repro``'s tree, applied at every period
+position marked ``shared``; each application keeps its own cache in the
+per-layer list, as ``repro`` stacks the shared slot's cache per period.
+``moe_impl="sharded"`` raises ``NotImplementedError`` (ROADMAP queue 1,
+'LM remainder').
 """
 
 from __future__ import annotations
@@ -22,8 +25,10 @@ from torch import nn
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import MLP, RMSNorm, dt, mlp
 
 __all__ = ["Block", "Stack", "check_ported", "init_block_cache"]
@@ -32,12 +37,8 @@ _LATER = "is not ported to repro_torch yet (ROADMAP queue 1, 'LM remainder')"
 
 
 def check_ported(cfg: ModelConfig, moe_impl: str = "local") -> None:
-    """Raise ``NotImplementedError`` for what the port's stack cannot build."""
-    for spec in (*cfg.prefix_layers, *cfg.period, *cfg.remainder):
-        if spec.kind not in ("attn", "rwkv6"):
-            raise NotImplementedError(f"block kind {spec.kind!r} {_LATER}")
-        if spec.shared:
-            raise NotImplementedError(f"a shared block {_LATER}")
+    """Raise ``NotImplementedError`` for what the port's stack cannot build:
+    the expert-parallel MoE."""
     if moe_impl != "local":
         raise NotImplementedError(f"moe_impl={moe_impl!r} (expert-parallel MoE) {_LATER}")
 
@@ -45,10 +46,15 @@ def check_ported(cfg: ModelConfig, moe_impl: str = "local") -> None:
 def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int, dtype,
                      device) -> dict[str, torch.Tensor]:
     """A KV ring for an attention block (``min(window, max_len)`` slots), the
-    float32 state for an RWKV-6 block."""
+    latent ring for an MLA block (``max_len`` slots), both in ``dtype``; the
+    float32 state for a Mamba2 or an RWKV-6 block."""
     if spec.kind == "attn":
         return attn_mod.init_kv_cache(batch, max_len, cfg.n_kv_heads, cfg.head_dim, spec.window,
                                       dtype, device)
+    if spec.kind == "mla":
+        return mla_mod.init_mla_cache(batch, max_len, cfg, dtype, device)
+    if spec.kind == "mamba2":
+        return ssm_mod.init_mamba2_state(batch, cfg, device)
     return rwkv_mod.init_state(batch, cfg, device)
 
 
@@ -67,6 +73,10 @@ class Block(nn.Module):
         self.pre_norm = RMSNorm(d, cfg.norm_eps, device)
         if spec.kind == "attn":
             self.inner = attn_mod.Attention(cfg, dtype, device, gen)
+        elif spec.kind == "mla":
+            self.inner = mla_mod.MLA(cfg, dtype, device, gen)
+        elif spec.kind == "mamba2":
+            self.inner = ssm_mod.Mamba2(cfg, dtype, device, gen)
         else:
             self.inner = rwkv_mod.RWKV6(cfg, dtype, device, gen)
         if cross:
@@ -89,13 +99,18 @@ class Block(nn.Module):
     def forward(self, x, positions, cache: dict | None, enc_out=None, sequential: bool = False,
                 use_kernel: bool = False):
         """(x, new cache or {}, aux). ``aux`` holds ``moe_load`` [E] for a MoE
-        block. ``sequential`` and ``use_kernel`` reach RWKV-6 blocks only."""
+        block. ``sequential`` reaches Mamba2 and RWKV-6 blocks (their
+        sequential oracles), ``use_kernel`` RWKV-6 blocks only."""
         spec, cfg = self.spec, self.cfg
         aux = {}
         h = self.pre_norm(x)
         if spec.kind == "attn":
             out, new_cache = attn_mod.attention_layer(self.inner, h, positions, cfg,
                                                       window=spec.window, cache=cache or None)
+        elif spec.kind == "mla":
+            out, new_cache = mla_mod.mla_layer(self.inner, h, positions, cfg, cache or None)
+        elif spec.kind == "mamba2":
+            out, new_cache = self.inner(h, cache or None, sequential)
         else:
             out, new_cache = self.inner(h, cache or None, sequential, use_kernel)
         if cfg.post_block_norm:
@@ -127,18 +142,45 @@ class Block(nn.Module):
         return x, ({} if new_cache is None else new_cache), aux
 
 
-class Stack(nn.ModuleList):
-    """The ``n_layers`` blocks of one model, in order: prefix, periods, remainder."""
+class Stack(nn.Module):
+    """The ``n_layers`` blocks of one model, in order: prefix, periods,
+    remainder. Indexing, ``len`` and iteration run over the layers, the
+    shared block at each of its applications. Each block is registered
+    once: layer ``i`` as child ``"i"``, the shared block as
+    ``"shared_block"`` (its layers have no child of their own), so
+    ``state_dict()`` and ``parameters()`` both hold its parameters once."""
 
     def __init__(self, cfg: ModelConfig, dtype, device, gen: torch.Generator, cross: bool = False):
+        super().__init__()
         check_ported(cfg)
-        specs = (*cfg.prefix_layers, *cfg.period * cfg.n_periods, *cfg.remainder)
-        super().__init__(Block(spec, cfg, dtype, device, gen, cross) for spec in specs)
         self.cfg = cfg
+        specs = (*cfg.prefix_layers, *cfg.period * cfg.n_periods, *cfg.remainder)
+        shared = [spec for spec in cfg.period if spec.shared]
+        if shared:
+            self.shared_block = Block(shared[0], cfg, dtype, device, gen, cross)
+        layers = []
+        for i, spec in enumerate(specs):
+            if spec.shared:
+                layers.append(self.shared_block)
+            else:
+                layers.append(Block(spec, cfg, dtype, device, gen, cross))
+                self.add_module(str(i), layers[-1])
+        self._layers = tuple(layers)  # a tuple is not registered: the blocks are, once each
+
+    def __len__(self) -> int:
+        return len(self._layers)
+
+    def __iter__(self):
+        return iter(self._layers)
+
+    def __getitem__(self, i: int) -> Block:
+        return self._layers[i]
 
     def init_caches(self, batch: int, max_len: int, dtype=None) -> list[dict[str, torch.Tensor]]:
-        """One cache per layer: a KV ring for attention (in ``dtype``, the
-        parameter dtype by default), the float32 state for RWKV-6."""
+        """One cache per layer, a shared block's applications each their own:
+        a KV ring for attention and the latent ring for MLA (in ``dtype``,
+        the parameter dtype by default), the float32 state for Mamba2 and
+        RWKV-6."""
         device = self[0].pre_norm.scale.device
         dtype = dtype or dt(self.cfg.param_dtype)
         return [init_block_cache(block.spec, self.cfg, batch, max_len, dtype, device)

@@ -4,6 +4,7 @@ The port of ``repro.models.model``. ``build_model(cfg, device=...)`` returns
 a ``Model`` (an ``nn.Module`` holding its parameters) with
 
   forward(tokens, positions, caches, batch) -> (h, caches, aux)
+  loss(batch)                              -> (scalar, aux)   [forward only]
   prefill(tokens, caches, batch)           -> (logits [B, 1, V], caches)
   decode_step(tokens, pos, caches)         -> (logits [B, 1, V], caches)
   init_caches(batch, max_len)              -> {"stack": [per-layer dict], "enc_out"?}
@@ -15,12 +16,19 @@ cross-attention reads and the caches carry into decode; vision (internvl2)
 takes precomputed patch embeddings ``batch["prefix_embeddings"]`` [B,
 n_prefix, D], which overwrite the first ``n_prefix`` token embeddings.
 
+MTP (deepseek-v3, ``mtp_depth > 0``) adds one attention block with a dense
+FFN applied to ``(h_t, emb(t+1))``, predicting token ``t + 2``; it enters
+the loss only, with weight 0.3. ``loss`` (with ``cross_entropy``, the
+blockwise ``_chunked_ce`` for ``loss_chunk > 0`` and the switch-style load
+term of a MoE router that is not aux-free) is ``repro``'s, evaluated
+forward only under ``torch.inference_mode``: no backward, no optimizer
+(training is ROADMAP queue 1, 'LM remainder').
+
 ``rwkv_kernel`` (default True) runs each prefill chunk of every RWKV-6 layer
 through the ``rwkv6_chunk`` CUDA kernel on the card; ``rwkv_kernel=False``
 runs its plain version there instead (the yardstick). On the CPU both run
-the plain version. Attention and the MoE dispatch run in plain PyTorch, as
-``repro`` runs them in plain ``jnp``. MTP, ``loss`` and ``cross_entropy``
-come with the training slice (ROADMAP queue 1, 'LM remainder').
+the plain version. Attention, MLA, Mamba2 and the MoE dispatch run in plain
+PyTorch, as ``repro`` runs them in plain ``jnp``.
 """
 
 from __future__ import annotations
@@ -35,21 +43,44 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import backbone as bb
 from repro_torch.models import layers as L
 
-__all__ = ["Model", "build_model"]
+__all__ = ["MTP", "Model", "build_model", "cross_entropy"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor | None = None):
+    """logits: [B, S, V] float32; labels: [B, S] integers. Mean NLL over the
+    tokens ``mask`` keeps (all without one)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.to(nll.dtype)
+    return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+class MTP(nn.Module):
+    """``repro``'s ``params["mtp"]``: ``proj`` [2D, D], an attention block
+    with a dense FFN, and the norms of its two inputs."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device, gen: torch.Generator):
+        super().__init__()
+        d = cfg.d_model
+        self.proj = L.normal_param((2 * d, d), dtype, (2 * d) ** -0.5, gen, device)
+        self.block = bb.Block(BlockSpec(kind="attn"), cfg, dtype, device, gen)
+        self.norm_h = L.RMSNorm(d, cfg.norm_eps, device)
+        self.norm_e = L.RMSNorm(d, cfg.norm_eps, device)
 
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device, rwkv_kernel: bool = True, seed: int = 0,
-                 moe_impl: str = "local"):
+                 moe_impl: str = "local", loss_chunk: int = 0):
         super().__init__()
         bb.check_ported(cfg, moe_impl)
-        if cfg.mtp_depth:
-            raise NotImplementedError(
-                f"{cfg.name}: MTP is not ported to repro_torch yet (ROADMAP queue 1, "
-                "'LM remainder')"
-            )
         self.cfg = cfg
         self.rwkv_kernel = rwkv_kernel
+        # > 0: blockwise cross-entropy over sequence chunks of this length
+        # (never the full [B, S, V] logits)
+        self.loss_chunk = loss_chunk
         dtype = L.dt(cfg.param_dtype)
         gen = torch.Generator(device=device).manual_seed(seed)
         self.embedding = L.Embedding(cfg.vocab, cfg.d_model, dtype, device, gen)
@@ -63,6 +94,8 @@ class Model(nn.Module):
                                           remainder=())
             self.encoder = bb.Stack(enc_cfg, dtype, device, gen)
             self.enc_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
+        if cfg.mtp_depth:
+            self.mtp = MTP(cfg, dtype, device, gen)
 
     @property
     def device(self) -> torch.device:
@@ -93,7 +126,8 @@ class Model(nn.Module):
         """(final-normed hidden states [B, S, D], new caches or None, aux).
         ``batch`` carries the frontends' inputs (``frames``,
         ``prefix_embeddings``: tensors or arrays). ``sequential=True`` runs
-        every RWKV-6 layer's sequential oracle instead of the chunked prefill."""
+        every RWKV-6 and Mamba2 layer's sequential oracle instead of the
+        chunked prefill."""
         cfg = self.cfg
         if batch is not None:
             batch = {k: torch.as_tensor(v, device=tokens.device) for k, v in batch.items()}
@@ -116,6 +150,61 @@ class Model(nn.Module):
         return h, new_caches, aux
 
     # -- entry points -----------------------------------------------------------
+    @torch.inference_mode()
+    def loss(self, batch: dict):
+        """``repro``'s ``Model.loss``, forward only: (scalar, aux with
+        ``loss``). ``batch`` holds ``tokens`` and ``labels`` [B, S], optionally
+        ``mask`` and the frontends' inputs (tensors or arrays)."""
+        cfg = self.cfg
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+        tokens, labels = batch["tokens"].long(), batch["labels"].long()
+        pos = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
+        h, _, aux = self.forward(tokens, pos, None, batch)
+        mask = batch.get("mask")
+        if self.loss_chunk and tokens.shape[1] % self.loss_chunk == 0:
+            total = self._chunked_ce(h, labels, mask)
+        else:
+            total = cross_entropy(self._unembed(h), labels, mask)
+        if cfg.mtp_depth:
+            total = total + 0.3 * self._mtp_loss(h, tokens, labels, pos)
+        if cfg.n_experts and not cfg.router_aux_free:
+            # switch-style aux loss on the mean load imbalance
+            load = aux.get("moe_load")
+            if load is not None:
+                frac = load / torch.clamp_min(load.sum(), 1.0)
+                total = total + 1e-2 * cfg.n_experts * torch.sum(frac * frac)
+        aux["loss"] = total
+        return total, aux
+
+    def _chunked_ce(self, h, labels, mask):
+        """Cross-entropy over sequence chunks of ``loss_chunk``: the logits
+        live as [B, chunk, V] at a time, never as [B, S, V]."""
+        c = self.loss_chunk
+        tot = torch.zeros((), device=h.device)
+        cnt = torch.zeros((), device=h.device)
+        for j in range(h.shape[1] // c):
+            sl = slice(j * c, (j + 1) * c)
+            logits = self._unembed(h[:, sl])
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels[:, sl, None])[..., 0]
+            mm = torch.ones_like(lse) if mask is None else mask[:, sl].to(lse.dtype)
+            tot = tot + ((lse - gold) * mm).sum()
+            cnt = cnt + mm.sum()
+        return tot / torch.clamp_min(cnt, 1.0)
+
+    def _mtp_loss(self, h, tokens, labels, pos):
+        """DeepSeek-V3 multi-token prediction: predict ``t + 2`` from ``(h_t,
+        emb(t+1))``; the last two positions are masked."""
+        mtp = self.mtp
+        emb_next = self._embed(torch.roll(tokens, -1, dims=1), None).to(h.dtype)
+        merged = torch.cat([mtp.norm_h(h), mtp.norm_e(emb_next)], dim=-1)
+        hm = L.matmul(merged, mtp.proj)
+        hm, _, _ = mtp.block(hm, pos, None)
+        logits = self._unembed(hm)
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        mask[:, -2:] = 0.0
+        return cross_entropy(logits, torch.roll(labels, -1, dims=1), mask)
+
     def init_caches(self, batch: int, max_len: int, dtype=None) -> dict:
         """Per-layer caches (attention KV in ``dtype``, the parameter dtype
         by default), and a zero ``enc_out`` for an encoder-decoder."""
@@ -140,12 +229,14 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ModelConfig, device: torch.device | str = "cuda", rwkv_kernel: bool = True,
-                seed: int = 0, moe_impl: str = "local") -> Model:
+                seed: int = 0, moe_impl: str = "local", loss_chunk: int = 0) -> Model:
     """A ``Model`` initialised at random on ``device`` (the card unless the
     caller asks for the CPU) from ``torch.Generator(device).manual_seed(seed)``,
     with the distributions and scales of ``repro``'s init. Parameters do not
-    require gradients: this is the serving path. ``moe_impl="sharded"``
-    (``repro``'s expert-parallel MoE) is not ported yet."""
+    require gradients: this is the serving path (``loss`` evaluates forward
+    only). ``loss_chunk`` is ``repro``'s blockwise cross-entropy chunk.
+    ``moe_impl="sharded"`` (``repro``'s expert-parallel MoE) is not ported
+    yet."""
     model = Model(cfg, resolve_device(device), rwkv_kernel=rwkv_kernel, seed=seed,
-                  moe_impl=moe_impl)
+                  moe_impl=moe_impl, loss_chunk=loss_chunk)
     return model.requires_grad_(False)

@@ -35,7 +35,7 @@ from repro_torch.kernels.fabric_deliver import ops as fabric_ops
 from repro_torch.kernels.fused_deliver import ops as fused_ops
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops
 from repro_torch.models import attention as at
-from repro_torch.models import moe
+from repro_torch.models import moe, ssm
 from repro_torch.models.model import build_model
 from repro_torch.serve.aer import AerServeConfig, AerSessionPool, DvsSession, build_poker_engine
 from repro_torch.serve.engine import Engine, ServeConfig
@@ -821,12 +821,13 @@ def test_cuda_moe_local_matches_the_cpu_and_the_reference(cuda):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-moe-16b", "gemma2-27b", "gemma3-1b", "glm4-9b",
-                                  "internvl2-76b", "whisper-base", "yi-34b"])
+                                  "internvl2-76b", "whisper-base", "yi-34b", "deepseek-v3-671b",
+                                  "zamba2-2.7b"])
 def test_cuda_smoke_arch_serves_as_on_the_cpu(cuda, arch):
-    """Each attention / MoE smoke config (float32) with the CPU model's
-    weights on the card: prefill logits allclose(rtol=1e-4, atol=1e-4) and
-    greedy tokens through ``Engine.generate`` (with the frontends' inputs)
-    equal the CPU's; no kernel of the port is launched."""
+    """Each attention / MoE / MLA / Mamba2 smoke config (float32) with the
+    CPU model's weights on the card: prefill logits allclose(rtol=1e-4,
+    atol=1e-4) and greedy tokens through ``Engine.generate`` (with the
+    frontends' inputs) equal the CPU's; no kernel of the port is launched."""
     cfg = get_config(arch, smoke=True)
     cpu_model = build_model(cfg, device="cpu", seed=0)
     model = build_model(cfg, device=cuda, seed=5)
@@ -849,3 +850,25 @@ def test_cuda_smoke_arch_serves_as_on_the_cpu(cuda, arch):
     assert out.is_cuda
     assert torch.equal(out.cpu(), Engine(cpu_model, ServeConfig(max_len=24)).generate(toks, 8, extras))
     assert all(fn.launches == n for fn, n in before.items())
+
+
+def test_cuda_ssd_chunked_core_matches_sequential_and_the_cpu(cuda):
+    """The Mamba2 SSD cores in float32, B = 2, S = 300 over chunks of 128 (a
+    padded tail), H = 8, P = 16, N = 16, from a carried-in state: the
+    chunked core equals the sequential one on the card, and the card's
+    chunked core the CPU's (outputs and final states allclose(rtol=1e-5,
+    atol=2e-5))."""
+    rng = np.random.default_rng(3)
+    b, s, h, p, n = 2, 300, 8, 16, 16
+    args = [rng.normal(size=(b, s, h, p)), rng.normal(size=(b, s, n)), rng.normal(size=(b, s, n)),
+            rng.uniform(0.01, 0.5, size=(b, s, h)), -rng.uniform(0.5, 2.0, size=h),
+            rng.normal(size=h), rng.normal(size=(b, h, p, n))]
+    cpu = [torch.as_tensor(a.astype(np.float32)) for a in args]
+    on = [a.to(cuda) for a in cpu]
+    with torch.inference_mode():
+        y_chk, h_chk = ssm.mamba2_chunked_core(*on[:6], 128, on[6])
+        y_seq, h_seq = ssm.mamba2_sequential_core(*on)
+        y_cpu, h_cpu = ssm.mamba2_chunked_core(*cpu[:6], 128, cpu[6])
+    assert y_chk.is_cuda and y_chk.shape == (b, s, h, p)
+    for got, want in ((y_chk, y_seq), (h_chk, h_seq), (y_chk.cpu(), y_cpu), (h_chk.cpu(), h_cpu)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)

@@ -78,12 +78,25 @@ def _t(arrays):
     ],
 )
 def test_chunk_plain_version_matches_repro(b, t, h, p, decay):
+    """Both sides' products pinned to full float32 (``highest``): the
+    tolerance is one for float32 sums in two orders, and neither library may
+    pick a lower-precision product for its default on this CPU."""
     args = _chunk_inputs(b, t, h, p, decay, seed=b * 100 + t)
-    y, s1 = rwkv_ops.rwkv6_chunk_ref(*_t(args))
+    precision = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        y, s1 = rwkv_ops.rwkv6_chunk_ref(*_t(args))
+    finally:
+        torch.set_float32_matmul_precision(precision)
     jargs = [jnp.asarray(a) for a in args]
-    for jy, js in (j_chunk_ref(*jargs), rwkv6_chunk_pallas(*jargs, interpret=True)):
-        np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-4, atol=1e-5)
-        np.testing.assert_allclose(s1.numpy(), np.asarray(js), rtol=1e-4, atol=1e-5)
+    with jax.default_matmul_precision("highest"):
+        refs = {"rwkv6_chunk_ref": j_chunk_ref(*jargs),
+                "rwkv6_chunk_pallas (interpret)": rwkv6_chunk_pallas(*jargs, interpret=True)}
+    for name, (jy, js) in refs.items():
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-4, atol=1e-5,
+                                   err_msg=f"y against repro's {name}")
+        np.testing.assert_allclose(s1.numpy(), np.asarray(js), rtol=1e-4, atol=1e-5,
+                                   err_msg=f"s1 against repro's {name}")
     assert np.isfinite(y.numpy()).all() and np.isfinite(s1.numpy()).all()
 
 
@@ -317,10 +330,12 @@ def test_serve_cli_runs_the_smoke_model_on_the_cpu(capsys, tmp_path):
     assert torch.equal(serve_cli.main(ckpt), out)
     assert torch.equal(serve_cli.main(ckpt), out)
     assert "loaded checkpoint step 0" in capsys.readouterr().out
-    # gemma3-1b (the default arch, as in repro) is ported now; zamba2-2.7b is not
-    assert serve_cli.main(["--arch", "gemma3-1b", "--smoke", "--device", "cpu"]).shape == (4, 16)
-    with pytest.raises(NotImplementedError, match="LM remainder"):
-        serve_cli.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu"])
+    # every arch serves now (gemma3-1b is the default, as in repro); an
+    # unknown one is refused
+    for arch in ("gemma3-1b", "zamba2-2.7b"):
+        assert serve_cli.main(["--arch", arch, "--smoke", "--device", "cpu"]).shape == (4, 16)
+    with pytest.raises(KeyError, match="unknown architecture"):
+        serve_cli.main(["--arch", "mamba-7b", "--smoke", "--device", "cpu"])
 
 
 def _port_config(jcfg) -> ModelConfig:
@@ -339,32 +354,26 @@ def test_config_schema_and_param_count_match_repro(arch):
         assert dataclasses.asdict(port) == dataclasses.asdict(jcfg)
         assert port.param_count() == jcfg.param_count()
         assert port.n_layers == jcfg.n_layers
-        if arch not in ("deepseek-v3-671b", "zamba2-2.7b"):  # MLA/MTP, Mamba2/shared blocks
-            assert get_config(arch, smoke=smoke) == port
-        else:
-            with pytest.raises(NotImplementedError, match="LM remainder"):
-                get_config(arch, smoke=smoke)
+        assert get_config(arch, smoke=smoke) == port  # all ten, MLA/MTP and Mamba2/shared too
 
 
 def test_build_model_refuses_what_is_not_ported_and_needs_a_device():
     cfg = get_config("rwkv6-3b", smoke=True)
     moe = dict(n_experts=4, top_k=2, moe_d_ff=16)
-    for ported in (  # attention, MoE FFNs, post-block norms and unrolled blocks build now
+    for ported in (  # every block kind, shared blocks and MTP build now
         dataclasses.replace(cfg, period=(BlockSpec(kind="attn"),)),
         dataclasses.replace(cfg, period=(BlockSpec(kind="rwkv6", ffn="moe"),), **moe),
         dataclasses.replace(cfg, post_block_norm=True),
         dataclasses.replace(cfg, remainder=(BlockSpec(kind="rwkv6"),)),
-    ):
-        assert len(build_model(ported, device="cpu").stack) == ported.n_layers
-    for bad in (
-        dataclasses.replace(cfg, period=(BlockSpec(kind="mla"),)),
-        dataclasses.replace(cfg, period=(BlockSpec(kind="mamba2"),)),
+        dataclasses.replace(cfg, period=(BlockSpec(kind="mla"),), q_lora_rank=8, kv_lora_rank=8,
+                            qk_nope_dim=8, qk_rope_dim=4, v_head_dim=8),
+        dataclasses.replace(cfg, period=(BlockSpec(kind="mamba2"),), ssm_heads=4, ssm_state=8),
         dataclasses.replace(cfg, period=(BlockSpec(kind="rwkv6"), BlockSpec(kind="attn",
                                                                             shared=True))),
         dataclasses.replace(cfg, mtp_depth=1),
     ):
-        with pytest.raises(NotImplementedError, match="LM remainder"):
-            build_model(bad, device="cpu")
+        assert len(build_model(ported, device="cpu").stack) == ported.n_layers
+    # still refused: the expert-parallel MoE
     with pytest.raises(NotImplementedError, match="LM remainder"):
         build_model(dataclasses.replace(cfg, period=(BlockSpec(kind="rwkv6", ffn="moe"),), **moe),
                     device="cpu", moe_impl="sharded")
@@ -407,9 +416,14 @@ def test_lm_params_from_numpy_unstacks_the_periods():
         np.testing.assert_array_equal(wr.float().numpy(), want)
         assert sd[f"stack.{layer}.inner.mu"].dtype == torch.float32
     model.load_state_dict(sd)
-    # MTP and zamba2's shared block are not ported yet (prefix, remainder and
-    # encoder blocks are: tests/test_torch_lm_archs.py)
-    for unported in ({"mtp": {"proj": np.zeros((2, 2))}},
-                     {"stack": {**tree["stack"], "shared_block": {"pre_norm": np.zeros(2)}}}):
-        with pytest.raises(NotImplementedError, match="LM remainder"):
-            lm_params_from_numpy(cfg, {**tree, **unported}, "cpu")
+    # MTP and a shared block keep their names (their models:
+    # tests/test_torch_lm_remainder.py); a leaf outside repro's tree is refused
+    extra = lm_params_from_numpy(cfg, {**tree, "mtp": {"proj": np.ones((2, 2), np.float32)},
+                                       "stack": {**tree["stack"], "shared_block": {
+                                           "pre_norm": {"scale": np.zeros(2, np.float32)}}}},
+                                 "cpu")
+    assert set(extra) - set(sd) == {"mtp.proj", "stack.shared_block.pre_norm.scale"}
+    assert torch.equal(extra["mtp.proj"], torch.ones(2, 2))
+    for stray in ({"lm_head": np.zeros(2)}, {"stack": {**tree["stack"], "periodz": np.zeros(2)}}):
+        with pytest.raises(ValueError, match="not part of repro's LM tree"):
+            lm_params_from_numpy(cfg, {**tree, **stray}, "cpu")
