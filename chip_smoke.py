@@ -172,7 +172,28 @@ Phases, each of which fails the run on any error:
      1% of their bytes; at float32 with one period, prefill + 8 decode steps
      against the full forward (1e-4); one float32 Mamba2 layer at full
      width, B = 8 x 512: the chunked core against the sequential one, and a
-     prefill of 384 + 128 decode steps against the full layer (1e-4).
+     prefill of 384 + 128 decode steps against the full layer (1e-4);
+  7. training, with the launch counts set to 0 just before it and read just
+     after (no Pallas kernel lies on the training path: repro trains RWKV-6
+     on its plain chunked core, so every count must stay 0). 7a: gemma3-1b
+     whole (1.0 B parameters, bf16, float32 moments) through
+     ``launch/train.run``, 8 x 512, 6 steps, a checkpoint every 3 (10 GB
+     each; the disk checked first, the folder under build/ deleted after),
+     a failure injected at step 4: the supervisor reports it, resumes from
+     step 3 and completes; then the step timed by part with CUDA events
+     (forward, backward with remat's recompute, optimizer), tokens/s, peak
+     memory, the model-FLOP share of 989 TFLOP/s (6 N T + attention), one
+     step profiled, and one checkpoint's host copy and write. 7b: gemma3-1b
+     cut to one period, float32, 2 x 64: one step on the card against the
+     CPU (loss rel 1e-5, gradient norm rel 1e-4, every gradient leaf
+     allclose(1e-4, 1e-5 * its max |g|), the elements past 1e-6 counted).
+     7c: deepseek-moe-16b cut to its dense prefix layer + one MoE layer
+     (1.09 B), bf16, q8 moments, 2 microbatches, 3 steps of 8 x 512: step
+     ms, tokens/s, peak memory, the dropped share, and the loss equal to
+     cross-entropy + the switch load term. 7d: one float32 step of every
+     arch's smoke config on the card against the CPU (loss rel 1e-5, norm
+     rel 1e-4; deepseek-v3's router_bias moves by +-u or 0 per period, as on
+     the CPU). 7e: ``rwkv6_chunk`` refuses CUDA inputs that require grad.
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` from the serving
 and LM paths, ``launches_compiler_phase`` from phase 3b,
@@ -180,6 +201,7 @@ and LM paths, ``launches_compiler_phase`` from phase 3b,
 phase 3d, ``launches_multidevice_phase`` from phase 3e,
 ``launches_attention_moe_phase`` from phase 5 (0),
 ``launches_lm_remainder_phase`` from phase 6 (0),
+``launches_train_phase`` from phase 7 (0),
 ``device_ms_two_table_v`` / ``device_ms_table_v_plus_k512`` from phase 3d's
 part 6), then as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (the plain stage 2
@@ -191,8 +213,10 @@ contracts a one-hot with a float32 matmul). Run from the repository root:
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import re
@@ -210,7 +234,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.core.cnn import compile_poker_cnn, poker_neuron_params  # noqa: E402
 from repro_torch.core.compiler import (  # noqa: E402
     CompiledArtifact,
@@ -236,7 +260,12 @@ from repro_torch.core.two_stage import (  # noqa: E402
     stage2_cam_match,
     two_stage_deliver,
 )
-from repro_torch.data.pipeline import DvsStreamConfig, DvsStreamSource  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    DataConfig,
+    DvsStreamConfig,
+    DvsStreamSource,
+    make_source,
+)
 from repro_torch.distributed.mesh import make_mesh  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cam_match import ops as cam_ops  # noqa: E402
@@ -247,6 +276,8 @@ from repro_torch.kernels.rwkv6 import ops as rwkv_ops  # noqa: E402
 from repro_torch.models import attention as attn_ops  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import moe as moe_ops  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import ssm as ssm_ops  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.serve.aer import (  # noqa: E402
@@ -273,6 +304,8 @@ from repro_torch.serve.sharded import (  # noqa: E402
     build_poker_shard_engine,
     retile_for_slabs,
 )
+from repro_torch.train import loop as train_loop  # noqa: E402
+from repro_torch.train import optimizer as train_opt  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -2912,15 +2945,17 @@ def _timed(fn) -> tuple[object, float]:
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def profile_lm(fn, per: int = 1, kernel: str | None = None) -> dict:
-    """One call of ``fn`` under torch.profiler, reported per ``per`` steps:
+def profile_lm(fn, per: int = 1, kernel: str | None = None, inference: bool = True) -> dict:
+    """One call of ``fn`` under torch.profiler (and ``inference_mode`` unless
+    ``inference=False``, as a train step needs), reported per ``per`` steps:
     wall ms, device busy ms, device ops, the device idle share of the wall
     time, the largest kernels and, given the name of a kernel of the port,
     that kernel's device ms."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch.inference_mode(), profile(activities=activities) as prof:
+    mode = torch.inference_mode() if inference else contextlib.nullcontext()
+    with mode, profile(activities=activities) as prof:
         _, wall_ms = _timed(fn)
     by_kernel: dict[str, float] = {}
     n_ops = 0
@@ -3609,6 +3644,444 @@ def phase_lm_remainder(dev) -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 7: training
+# ---------------------------------------------------------------------------
+BF16_PEAK_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate (NVIDIA data sheet)
+TRAIN_B, TRAIN_S = 8, 512  # 7a and 7c: sequences x tokens per step
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 3, 4  # 7a, through launch/train.run
+TRAIN_TIMED = 3  # 7a: steps timed by part after one warm-up step
+TRAIN_CHECK_B, TRAIN_CHECK_S = 2, 64  # 7b: float32, one period, card against CPU
+MOE_TRAIN_STEPS, MOE_MICROBATCHES = 3, 2  # 7c
+ARCH_B, ARCH_S = 2, 32  # 7d: every arch's smoke config
+LOSS_RTOL, NORM_RTOL = 1e-5, 1e-4
+# float32 gradients held leaf by leaf to allclose(1e-4, GRAD_ATOL * max |g|):
+# float32 rounding reaches a few 1e-6 of a leaf's largest gradient on its
+# elements near zero (the CPU tests measure the port and repro each against a
+# float64 evaluation: up to 4.8e-6 and 2.4e-6); the elements past 1e-6 are
+# counted and reported
+GRAD_RTOL, GRAD_ATOL, GRAD_ATOL_TIGHT = 1e-4, 1e-5, 1e-6
+ROUTER_U = 1e-3  # repro's router-bias step
+
+
+class _Tee:
+    """A text stream writing to several."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for s in self.streams:
+            s.write(text)
+        return len(text)
+
+    def flush(self):
+        for s in self.streams:
+            s.flush()
+
+
+def train_flops(model, b: int, s: int) -> dict:
+    """Model FLOPs of one training step on ``b x s`` tokens: ``6 * N * tokens``
+    with N the parameters that enter a product (every parameter of rank >=
+    2; a tied embedding counted once, as the unembedding), plus attention's
+    two products, ``12 * B * H * head_dim * sum_q keys(q)`` per attention
+    layer (forward 4, backward 8), keys(q) = min(q + 1, window) causal.
+    Recomputation (remat) is not counted."""
+    cfg = model.cfg
+    n = sum(p.numel() for p in model.parameters() if p.dim() >= 2)
+    dense = 6 * n * b * s
+    attn = 0
+    q = np.arange(s)
+    for block in model.stack:
+        if block.spec.kind != "attn":
+            continue
+        keys = q + 1 if block.spec.window is None else np.minimum(q + 1, block.spec.window)
+        attn += 12 * b * cfg.n_heads * cfg.head_dim * int(keys.sum())
+    return {"matmul_params": n, "dense_flops": dense, "attention_flops": attn,
+            "flops": dense + attn,
+            "formula": "6 * N * tokens + 12 * B * H * head_dim * sum_q min(q + 1, window) "
+                       "per attention layer; N = parameters of rank >= 2"}
+
+
+def _dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def time_train_parts(model, state, batches) -> dict:
+    """Each step by part with CUDA events, the first step a warm-up: the
+    forward (``Model.loss`` with gradients on), forward + backward
+    (``loss_and_grads``, remat's recompute included) and the whole
+    ``train_step``; the backward and the optimizer (AdamW and the
+    router-bias update) are the differences. Then one whole step under
+    torch.profiler, and one checkpoint of the state: the blocking host copy
+    and the write to disk (host clock)."""
+    opt_cfg = train_opt.OptConfig(total_steps=100, warmup_steps=10)
+    step = train_loop.make_train_step(model, opt_cfg)
+
+    def forward(batch):
+        with torch.enable_grad(), train_loop.bound_parameters(model, {
+                n: p.detach().requires_grad_() for n, p in state["params"].items()}):
+            return model.loss(batch)
+
+    parts = {"forward": [], "forward_backward": [], "step": []}
+    for i, batch in enumerate(batches):
+        for name, fn in (("forward", lambda: forward(batch)),
+                         ("forward_backward",
+                          lambda: train_loop.loss_and_grads(model, state["params"], batch)),
+                         ("step", lambda: step(state, batch))):
+            a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            result = fn()
+            z.record()
+            z.synchronize()
+            if i:
+                parts[name].append(a.elapsed_time(z))
+            if name == "step":
+                state = result[0]
+            del result
+    out = {f"{k}_ms": statistics.median(v) for k, v in parts.items()}
+    out["backward_ms"] = out["forward_backward_ms"] - out["forward_ms"]
+    out["optimizer_ms"] = out["step_ms"] - out["forward_backward_ms"]
+    out["samples_ms"] = parts
+    # one whole train step under the profiler: device busy ms, ops, idle share
+    out["profile"] = profile_lm(lambda: step(state, batches[-1]), inference=False)
+    ckpt_dir = OUT_DIR / "train_ckpt_timed"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt = Checkpointer(str(ckpt_dir), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(1, state)
+    t1 = time.perf_counter()
+    ckpt.wait()
+    t2 = time.perf_counter()
+    out["checkpoint"] = {"host_copy_ms": (t1 - t0) * 1e3, "write_ms": (t2 - t1) * 1e3,
+                         "bytes": _dir_bytes(ckpt_dir)}
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return out
+
+
+def phase7_launcher(dev) -> dict:
+    """7a: gemma3-1b whole (bf16, float32 moments) through ``launch/train.run``:
+    B x S = TRAIN_B x TRAIN_S, TRAIN_STEPS steps, a checkpoint every
+    TRAIN_CKPT_EVERY, a failure injected at TRAIN_FAIL_AT; then the step
+    timed by part and the model-FLOP share of the card's dense bf16 peak."""
+    cfg = get_config("gemma3-1b")
+    total, _ = cfg.param_count()
+    ckpt_dir = OUT_DIR / "train_ckpt"
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    save_bytes = total * (2 + 4 + 4)  # bf16 parameters, float32 m and v
+    free = shutil.disk_usage(OUT_DIR).free
+    if free < 3.5 * save_bytes:  # two kept checkpoints and one being written
+        raise AssertionError(f"7a needs about {3.5 * save_bytes / 1e9:.1f} GB of disk for its "
+                             f"checkpoints; {free / 1e9:.1f} GB are free")
+    argv = ["--arch", "gemma3-1b", "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+            "--steps", str(TRAIN_STEPS), "--ckpt-every", str(TRAIN_CKPT_EVERY),
+            "--fail-at", str(TRAIN_FAIL_AT), "--ckpt-dir", str(ckpt_dir), "--log-every", "1",
+            "--restart-delay", "0", "--seed", str(SEED), "--device", str(dev)]
+    history, text = [], io.StringIO()
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, text)):
+        rc = train_cli.run(train_cli.build_parser().parse_args(argv), history)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    printed = text.getvalue()
+    saved = _dir_bytes(ckpt_dir / f"step_{TRAIN_STEPS}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    steps = [s for s, *_ in history]
+    want_steps = [*range(TRAIN_FAIL_AT), *range(TRAIN_CKPT_EVERY, TRAIN_STEPS)]
+    for needle in (f"[supervisor] failure #1: RuntimeError: injected failure (test)",
+                   f"[supervisor] resumed from step {TRAIN_CKPT_EVERY}",
+                   "[supervisor] training complete"):
+        if needle not in printed:
+            raise AssertionError(f"7a: the launcher did not print {needle!r}")
+    if rc != 0 or steps != want_steps or not all(math.isfinite(l) for _, l, _ in history):
+        raise AssertionError(f"7a: exit {rc}, steps {steps} (want {want_steps}), {history}")
+    out = {"argv": argv, "exit_code": rc, "seconds": seconds, "steps_run": steps,
+           "losses": [l for _, l, _ in history], "grad_norms": [g for *_, g in history],
+           "step3_first_and_resumed_loss": [history[TRAIN_CKPT_EVERY][1],
+                                            history[TRAIN_FAIL_AT][1]],
+           "max_memory_allocated_bytes": peak, "checkpoint_bytes": saved,
+           "checkpoint_bytes_predicted": save_bytes, "disk_free_bytes_before": free}
+    log(f"  7a launcher: exit {rc} in {seconds:.1f} s; steps {steps}; loss "
+        f"{history[0][1]:.4f} -> {history[-1][1]:.4f}; step 3 {history[3][1]!r} first, "
+        f"{history[4][1]!r} resumed; peak {peak / 1e9:.2f} GB; checkpoint {saved / 1e9:.2f} GB")
+    # the step by part, on a fresh model (the launcher's is gone)
+    _free()
+    model = build_model(cfg, device=dev, rwkv_kernel=False, seed=SEED)
+    state = train_loop.init_train_state(model, train_opt.OptConfig())
+    data = make_source(DataConfig(vocab=cfg.vocab, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                                  seed=SEED))
+    batches = [{k: torch.as_tensor(v, device=dev) for k, v in data.batch(i).items()}
+               for i in range(1 + TRAIN_TIMED)]
+    torch.cuda.reset_peak_memory_stats()
+    timing = time_train_parts(model, state, batches)
+    timing["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    flops = train_flops(model, TRAIN_B, TRAIN_S)
+    timing["tokens_per_s"] = TRAIN_B * TRAIN_S / (timing["step_ms"] / 1e3)
+    timing["model_flops"] = flops
+    timing["achieved_flops_per_s"] = flops["flops"] / (timing["step_ms"] / 1e3)
+    timing["peak_share"] = timing["achieved_flops_per_s"] / BF16_PEAK_FLOPS
+    timing["parameters"] = sum(p.numel() for p in model.parameters())
+    out["timing"] = timing
+    c = timing["checkpoint"]
+    log(f"  7a step, {TRAIN_B} x {TRAIN_S}: forward {timing['forward_ms']:.1f} + backward "
+        f"{timing['backward_ms']:.1f} + optimizer {timing['optimizer_ms']:.1f} = "
+        f"{timing['step_ms']:.1f} ms ({timing['tokens_per_s']:.0f} tokens/s), peak "
+        f"{timing['max_memory_allocated_bytes'] / 1e9:.2f} GB; {flops['flops'] / 1e12:.2f} TFLOP "
+        f"of model work = {timing['peak_share']:.3f} of {BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s; "
+        f"checkpoint {c['bytes'] / 1e9:.2f} GB: host copy {c['host_copy_ms']:.0f} ms, write "
+        f"{c['write_ms']:.0f} ms")
+    prof = timing["profile"]
+    log(f"  7a one step profiled: {prof['wall_ms']:.1f} ms wall, device busy "
+        f"{prof['device_busy_ms']:.1f} ms over {prof['device_ops']} ops (idle "
+        f"{prof['device_idle_share']:.3f}); largest: " + ", ".join(
+            f"{name[:60]} {ms:.1f}" for name, ms in list(prof["top_device_ms"].items())[:6]))
+    del model, state, batches
+    _free()
+    return out
+
+
+def _batch(cfg, b: int, s: int, seed: int = SEED) -> dict:
+    """A numpy batch from the seed: tokens, next-token labels and the
+    frontend's input (whisper's frames, internvl2's patch embeddings)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (b, s + 1)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = rng.normal(size=(b, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "vision_stub":
+        batch["prefix_embeddings"] = rng.normal(
+            size=(b, cfg.n_prefix_embeddings, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _card_and_cpu(cfg, dev, batch, grads: bool) -> dict:
+    """One ``make_train_step`` from the same weights and batch on the card and
+    on the CPU; with ``grads``, both sides' gradients too."""
+    cpu = build_model(cfg, device="cpu", rwkv_kernel=False, seed=SEED)
+    gpu = build_model(cfg, device=dev, rwkv_kernel=False, seed=SEED)
+    gpu.load_state_dict(cpu.state_dict())
+    out = {}
+    for side, model in (("cpu", cpu), ("gpu", gpu)):
+        opt = train_opt.OptConfig()
+        state = train_loop.init_train_state(model, opt)
+        t0 = time.perf_counter()
+        new, metrics = train_loop.make_train_step(model, opt)(state, batch)
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        out[side] = {"loss": loss, "grad_norm": gnorm, "step_s": time.perf_counter() - t0,
+                     "state": state, "new": new}
+        if grads:
+            out[side]["grads"] = train_loop.loss_and_grads(model, state["params"], batch)[2]
+    for what, tol in (("loss", LOSS_RTOL), ("grad_norm", NORM_RTOL)):
+        rel = abs(out["gpu"][what] - out["cpu"][what]) / abs(out["cpu"][what])
+        out[f"{what}_rel_diff"] = rel
+        if not rel <= tol:
+            raise AssertionError(f"{cfg.name}: {what} {out['gpu'][what]} on the card against "
+                                 f"{out['cpu'][what]} on the CPU (rel {rel:.3g}, limit {tol})")
+    return out
+
+
+def _hold_grads(cpu: dict, gpu: dict, what: str) -> dict:
+    """Every gradient leaf: allclose(GRAD_RTOL, GRAD_ATOL * max |g|); counts
+    the elements past GRAD_ATOL_TIGHT * max |g| and the largest difference
+    over a leaf's largest gradient."""
+    worst, past_tight, elements = 0.0, 0, 0
+    for name, want in cpu.items():
+        got = gpu[name].float().cpu()
+        want = want.float()
+        top = float(want.abs().max())
+        diff = (got - want).abs()
+        bound = GRAD_RTOL * want.abs()
+        if not bool((diff <= bound + GRAD_ATOL * top).all()):
+            raise AssertionError(f"{what}: gradient {name} differs by {float(diff.max()):.3g} "
+                                 f"(largest |g| {top:.3g})")
+        past_tight += int((diff > bound + GRAD_ATOL_TIGHT * top).sum())
+        elements += want.numel()
+        worst = max(worst, float(diff.max()) / top if top else 0.0)
+    return {"leaves": len(cpu), "elements": elements, "max_diff_over_leaf_max": worst,
+            "elements_past_1e-6_of_leaf_max": past_tight, "rtol": GRAD_RTOL,
+            "atol_over_leaf_max": GRAD_ATOL}
+
+
+def phase7_fp32_check(dev) -> dict:
+    """7b: gemma3-1b cut to one period at full width, float32, one step on
+    the card against the CPU (TF32 off): loss rel 1e-5, gradient norm rel
+    1e-4, every gradient leaf held."""
+    cfg = dataclasses.replace(get_config("gemma3-1b"), n_periods=1, param_dtype="float32",
+                              compute_dtype="float32")
+    t0 = time.perf_counter()
+    legs = _card_and_cpu(cfg, dev, _batch(cfg, TRAIN_CHECK_B, TRAIN_CHECK_S), grads=True)
+    held = _hold_grads(legs["cpu"]["grads"], legs["gpu"]["grads"], "7b gemma3-1b one period")
+    out = {"batch": TRAIN_CHECK_B, "seq": TRAIN_CHECK_S, "layers": cfg.n_layers,
+           "loss": legs["gpu"]["loss"], "cpu_loss": legs["cpu"]["loss"],
+           "loss_rel_diff": legs["loss_rel_diff"], "grad_norm": legs["gpu"]["grad_norm"],
+           "grad_norm_rel_diff": legs["grad_norm_rel_diff"], "grads": held,
+           "seconds": time.perf_counter() - t0}
+    log(f"  7b fp32 one period ({cfg.n_layers} layers), {TRAIN_CHECK_B} x {TRAIN_CHECK_S}: loss "
+        f"{out['loss']:.7f} (CPU {out['cpu_loss']:.7f}, rel {out['loss_rel_diff']:.2g}), grad norm "
+        f"rel {out['grad_norm_rel_diff']:.2g}; {held['leaves']} gradient leaves within "
+        f"{held['max_diff_over_leaf_max']:.2g} of their largest |g| "
+        f"({held['elements_past_1e-6_of_leaf_max']} of {held['elements']} elements past 1e-6)")
+    del legs
+    _free()
+    return out
+
+
+def phase7_moe(dev) -> dict:
+    """7c: deepseek-moe-16b at full width cut to its dense prefix layer and
+    one MoE layer (64 experts, top-6, 2 shared), bf16, q8 moments,
+    MOE_MICROBATCHES microbatches, MOE_TRAIN_STEPS steps of TRAIN_B x
+    TRAIN_S: step ms, tokens/s, peak memory, the dropped share; the loss
+    finite and equal to cross-entropy + the switch load term."""
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"), n_periods=1)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=dev, seed=SEED)
+    opt = train_opt.OptConfig(state_dtype="q8", total_steps=100, warmup_steps=10)
+    state = train_loop.init_train_state(model, opt)
+    step = train_loop.make_train_step(model, opt, microbatches=MOE_MICROBATCHES)
+    data = make_source(DataConfig(vocab=cfg.vocab, global_batch=TRAIN_B, seq_len=TRAIN_S,
+                                  seed=SEED))
+    step_ms, losses = [], []
+    for i in range(MOE_TRAIN_STEPS):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in data.batch(i).items()}
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, metrics = step(state, batch)
+        z.record()
+        z.synchronize()
+        step_ms.append(a.elapsed_time(z))
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(l) for l in losses):
+        raise AssertionError(f"7c: losses {losses}")
+    # one microbatch forward at the trained weights: the loads, the drops and
+    # the switch term inside the loss
+    mb = {k: v[: TRAIN_B // MOE_MICROBATCHES] for k, v in batch.items()}
+    t = mb["tokens"].numel()
+    with torch.no_grad(), train_loop.bound_parameters(model, state["params"]):
+        total, aux = model.loss(mb)
+        pos = torch.arange(TRAIN_S, device=dev).expand(mb["tokens"].shape)
+        h, _, _ = model(mb["tokens"].long(), pos)
+        ce = lm_model.cross_entropy(model._unembed(h), mb["labels"].long())
+    load = aux["moe_load"]
+    frac = load / load.sum()
+    switch = float(1e-2 * cfg.n_experts * (frac * frac).sum())
+    total, ce = float(total), float(ce)
+    if not (switch > 0 and abs(total - (ce + switch)) <= 1e-5 * abs(total)):
+        raise AssertionError(f"7c: loss {total} is not cross-entropy {ce} + switch {switch}")
+    cap = moe_ops.expert_capacity(cfg, t)
+    dropped = int((load - cap).clamp_min(0).sum())
+    assigned = int(load.sum())
+    steady = statistics.median(step_ms[1:])
+    out = {"layers": cfg.n_layers, "parameters": sum(p.numel() for p in model.parameters()),
+           "state_dtype": "q8", "microbatches": MOE_MICROBATCHES, "batch": TRAIN_B,
+           "seq": TRAIN_S, "step_ms": step_ms, "steady_step_ms": steady,
+           "tokens_per_s": TRAIN_B * TRAIN_S / (steady / 1e3), "losses": losses,
+           "max_memory_allocated_bytes": peak, "tokens_per_microbatch": t,
+           "capacity": cap, "assignments": assigned, "dropped": dropped,
+           "dropped_share": dropped / assigned, "loss_microbatch": total, "cross_entropy": ce,
+           "switch_term": switch}
+    log(f"  7c deepseek-moe-16b, {cfg.n_layers} layers ({out['parameters'] / 1e9:.2f} B), q8, "
+        f"{MOE_MICROBATCHES} microbatches of {TRAIN_B // MOE_MICROBATCHES} x {TRAIN_S}: steps "
+        f"{', '.join(f'{x:.1f}' for x in step_ms)} ms ({out['tokens_per_s']:.0f} tokens/s), peak "
+        f"{peak / 1e9:.2f} GB; losses {', '.join(f'{x:.4f}' for x in losses)}; {dropped} of "
+        f"{assigned} assignments dropped at capacity {cap} ({dropped / assigned:.4f}); switch "
+        f"term {switch:.5f} inside the loss")
+    del model, state, step
+    _free()
+    return out
+
+
+def phase7_archs(dev) -> dict:
+    """7d: every arch's smoke config in float32, one step on the card against
+    the CPU: loss rel 1e-5, gradient norm rel 1e-4; deepseek-v3's
+    ``router_bias`` moves by exactly +-u or 0 per period, as on the CPU."""
+    out = {}
+    u = float(torch.tensor(ROUTER_U))
+    for arch in sorted(ARCHS):
+        cfg = dataclasses.replace(get_config(arch, smoke=True), param_dtype="float32",
+                                  compute_dtype="float32")
+        legs = _card_and_cpu(cfg, dev, _batch(cfg, ARCH_B, ARCH_S), grads=False)
+        out[arch] = {"loss": legs["gpu"]["loss"], "loss_rel_diff": legs["loss_rel_diff"],
+                     "grad_norm": legs["gpu"]["grad_norm"],
+                     "grad_norm_rel_diff": legs["grad_norm_rel_diff"]}
+        if arch == "deepseek-v3-671b":
+            moves = []
+            for period in range(cfg.n_periods):
+                name = f"stack.{len(cfg.prefix_layers) + period}.ffn.router_bias"
+                by_side = {side: (legs[side]["new"]["params"][name]
+                                  - legs[side]["state"]["params"][name]).cpu()
+                           for side in ("cpu", "gpu")}
+                if not (set(by_side["gpu"].tolist()) <= {-u, 0.0, u}
+                        and torch.equal(by_side["gpu"], by_side["cpu"])):
+                    raise AssertionError(f"7d deepseek-v3: period {period}'s router_bias moved "
+                                         f"by {by_side}")
+                moves.append([int((by_side["gpu"] > 0).sum()), int((by_side["gpu"] == 0).sum()),
+                               int((by_side["gpu"] < 0).sum())])
+            out[arch]["router_bias_up_zero_down_per_period"] = moves
+        del legs
+    _free()
+    log("  7d smoke configs, fp32, card against CPU: " + "; ".join(
+        f"{a} loss {v['loss']:.5f} (rel {v['loss_rel_diff']:.1g}), norm rel "
+        f"{v['grad_norm_rel_diff']:.1g}" for a, v in out.items()))
+    log(f"  7d deepseek-v3 router_bias up / unchanged / down per period: "
+        f"{out['deepseek-v3-671b']['router_bias_up_zero_down_per_period']} (+-{ROUTER_U})")
+    return out
+
+
+def phase7_refusal(dev) -> dict:
+    """7e: ``rwkv6_chunk`` (no backward) raises on CUDA inputs that require
+    gradients, before it launches."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, t, h, p = 2, 16, 4, 16
+    r, k, v = (torch.randn((b, t, h, p), generator=gen, device=dev) for _ in range(3))
+    log_w = -torch.rand((b, t, h, p), generator=gen, device=dev) - 0.01
+    u = torch.randn((h, p), generator=gen, device=dev)
+    s0 = torch.zeros((b, h, p, p), device=dev)
+    refused = []
+    for i, name in enumerate(("r", "k", "v", "log_w", "u", "s0")):
+        args = [x.detach().requires_grad_(j == i) for j, x in enumerate((r, k, v, log_w, u, s0))]
+        try:
+            rwkv_ops.rwkv6_chunk(*args)
+        except RuntimeError as e:
+            if "no backward" in str(e):
+                refused.append(name)
+    if len(refused) != 6:
+        raise AssertionError(f"7e: rwkv6_chunk refused only {refused}")
+    log(f"  7e rwkv6_chunk refuses CUDA inputs that require grad: {refused}")
+    return {"refused_inputs": refused}
+
+
+def phase_train(dev) -> dict[str, int]:
+    """Phase 7: the launch counts set to 0 just before and read just after.
+    No Pallas kernel lies on the training path (repro trains RWKV-6 on its
+    plain chunked core), so it must launch none of the port's kernels."""
+    t0 = time.perf_counter()
+    _reset_counts()
+    out = {"card": torch.cuda.get_device_name(0)}
+    for name, fn in (("7a_launcher", phase7_launcher), ("7b_fp32_check", phase7_fp32_check),
+                     ("7c_moe", phase7_moe), ("7d_archs", phase7_archs),
+                     ("7e_refusal", phase7_refusal)):
+        t1 = time.perf_counter()
+        out[name] = fn(dev)
+        out[name]["phase_seconds"] = time.perf_counter() - t1
+    counts = _read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"training phase launched {counts}")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "chip_smoke_train.json").write_text(json.dumps(out, indent=1))
+    log(f"training phase: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v['phase_seconds']:.1f}" for k, v in out.items() if isinstance(v, dict)
+        and "phase_seconds" in v) + f"), launches {counts}")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on the GPU only")
@@ -3625,6 +4098,7 @@ def main() -> None:
     launches.update(phase_lm(dev))
     attention_moe_launches = phase_attention_moe(dev)
     lm_remainder_launches = phase_lm_remainder(dev)
+    train_launches = phase_train(dev)
     if set(launches) != set(kernels):
         raise AssertionError(f"serving legs launched {sorted(launches)}, kernels {sorted(kernels)}")
     for name, n in launches.items():
@@ -3637,6 +4111,7 @@ def main() -> None:
         kernels[name]["launches_multidevice_phase"] = multidevice_launches.get(name, 0)
         kernels[name]["launches_attention_moe_phase"] = attention_moe_launches.get(name, 0)
         kernels[name]["launches_lm_remainder_phase"] = lm_remainder_launches.get(name, 0)
+        kernels[name]["launches_train_phase"] = train_launches.get(name, 0)
         for shape, at in mm_kernels.items():
             if name in at:
                 kernels[name][f"device_ms_{shape}"] = at[name]["device_ms"]

@@ -56,12 +56,14 @@ _TORCH_NAMES = {v[0]: k for k, v in _CUSTOM_DTYPES.items()}
 def _to_host(leaf) -> tuple[np.ndarray, str]:
     """``(numpy array as stored, dtype name)`` of one leaf, copied to the host."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        t = leaf.detach()
+        # a device tensor's host copy is already private; a host tensor is copied
+        t = t.cpu() if t.device.type != "cpu" else t.clone()
         name = _TORCH_NAMES.get(t.dtype)
         if name is not None:
             _, same_width, np_view = _CUSTOM_DTYPES[name]
-            return t.contiguous().view(same_width).numpy().view(np_view).copy(), name
-        a = t.numpy().copy()
+            return t.contiguous().view(same_width).numpy().view(np_view), name
+        a = t.numpy()
         return a, str(a.dtype)
     a = np.array(leaf, copy=True)
     return a, str(a.dtype)

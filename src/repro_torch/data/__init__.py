@@ -1,1 +1,1 @@
-"""Event sources for the AER serving path."""
+"""Token sources for training and event sources for the AER serving path."""

@@ -5,7 +5,9 @@
 u ``[H, P]``, s0 ``[B, H, P, P]``, all float32, and returns
 ``(y [B, T, H, P], s1 [B, H, P, P])``. CPU tensors go to the plain version
 (:func:`~repro_torch.kernels.rwkv6.ref.rwkv6_chunk_ref`); CUDA tensors launch
-the kernel or raise. The four ``[B, T, H, P]`` inputs are read in place: each
+the kernel or raise. The kernel has no backward: with gradients on, CUDA
+inputs that require them raise ``RuntimeError`` rather than come back cut
+from the graph. The four ``[B, T, H, P]`` inputs are read in place: each
 needs its ``[T, H, P]`` part packed, and may have any batch stride (a chunk
 sliced out of a longer sequence). ``rwkv6_chunk.launches`` counts kernel
 launches.
@@ -105,6 +107,11 @@ def rwkv6_chunk(
         return rwkv6_chunk_ref(r, k, v, log_w, u, s0)
     if dev.type != "cuda":
         raise ValueError(f"rwkv6_chunk runs on CPU or CUDA tensors, got {dev}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (r, k, v, log_w, u, s0)):
+        raise RuntimeError(
+            "rwkv6_chunk has no backward (repro's Pallas kernel has none either): its outputs "
+            "would carry no gradient; build the model with rwkv_kernel=False to train"
+        )
     b, t, h, p = r.shape
     if not (0 < t <= MAX_CHUNK and 0 < p <= MAX_HEAD_DIM):
         raise ValueError(

@@ -14,6 +14,8 @@ output. A ``shared`` period block (zamba2) is one parameter set,
 ``stack.shared_block`` as in ``repro``'s tree, applied at every period
 position marked ``shared``; each application keeps its own cache in the
 per-layer list, as ``repro`` stacks the shared slot's cache per period.
+Without caches, each period may run under activation checkpointing
+(``cfg.remat``), as ``repro``'s scan body runs under ``jax.checkpoint``.
 ``moe_impl="sharded"`` raises ``NotImplementedError`` (ROADMAP queue 1,
 'LM remainder').
 """
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import attention as attn_mod
@@ -191,25 +194,48 @@ class Stack(nn.Module):
         """``repro``'s ``Stack.apply``: (x, new caches or None, aux). ``aux``
         holds, when the stack has MoE blocks, ``moe_load`` [E] summed over
         every layer and ``moe_load_periods`` [n_periods, E], each period's
-        MoE blocks summed."""
+        MoE blocks summed.
+
+        With no caches and gradients on, each period runs under
+        ``torch.utils.checkpoint`` when ``cfg.remat`` is not ``"none"``:
+        its activations are recomputed in the backward, as ``repro`` wraps
+        its scanned period in ``jax.checkpoint`` (``"dots"`` recomputes the
+        whole period too)."""
         cfg = self.cfg
         n_pre, n_p = len(cfg.prefix_layers), len(cfg.period)
+        remat = caches is None and cfg.remat != "none" and torch.is_grad_enabled()
         new_caches = [] if caches is not None else None
+        total = None  # every layer's MoE load
+        period_loads: list[torch.Tensor | None] = []
+
+        def run(x, lo: int, hi: int):
+            """Layers ``lo`` to ``hi - 1``: (x, their MoE loads summed or None)."""
+            load = None
+            for i in range(lo, hi):
+                x, nc, block_aux = self[i](x, positions, caches[i] if caches is not None else None,
+                                           enc_out, sequential, use_kernel)
+                if caches is not None:
+                    new_caches.append(nc)
+                if "moe_load" in block_aux:
+                    load = block_aux["moe_load"] if load is None else load + block_aux["moe_load"]
+            return x, load
+
+        groups = [(i, i + 1) for i in range(n_pre)]
+        groups += [(n_pre + p * n_p, n_pre + (p + 1) * n_p) for p in range(cfg.n_periods)]
+        groups += [(i, i + 1) for i in range(n_pre + cfg.n_periods * n_p, len(self))]
+        for lo, hi in groups:
+            period = n_pre <= lo < n_pre + cfg.n_periods * n_p
+            if period and remat:
+                x, load = checkpoint(run, x, lo, hi, use_reentrant=False)
+            else:
+                x, load = run(x, lo, hi)
+            if period:
+                period_loads.append(load)
+            if load is not None:
+                total = load if total is None else total + load
         aux: dict[str, torch.Tensor] = {}
-        period_loads: list[torch.Tensor | None] = [None] * cfg.n_periods
-        for i, block in enumerate(self):
-            x, nc, block_aux = block(x, positions, caches[i] if caches is not None else None,
-                                     enc_out, sequential, use_kernel)
-            if caches is not None:
-                new_caches.append(nc)
-            load = block_aux.get("moe_load")
-            if load is None:
-                continue
-            aux["moe_load"] = load if "moe_load" not in aux else aux["moe_load"] + load
-            period = (i - n_pre) // n_p
-            if i >= n_pre and period < cfg.n_periods:
-                prev = period_loads[period]
-                period_loads[period] = load if prev is None else prev + load
+        if total is not None:
+            aux["moe_load"] = total
         if any(load is not None for load in period_loads):
             aux["moe_load_periods"] = torch.stack(period_loads)
         return x, new_caches, aux

@@ -16,7 +16,7 @@ from torch import nn
 
 __all__ = [
     "DTYPES", "MLP", "Embedding", "RMSNorm", "apply_rope", "dt", "embed", "gelu", "matmul", "mlp",
-    "normal_param", "rmsnorm", "rope_freqs", "silu", "softcap", "unembed",
+    "normal_param", "rmsnorm", "rope_freqs", "sigmoid", "silu", "softcap", "unembed",
 ]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -43,12 +43,34 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(dtype), w.to(dtype))
 
 
+class _Sigmoid(torch.autograd.Function):
+    """``1 / (1 + exp(-x))`` op by op, with ``jax.nn.sigmoid``'s derivative
+    ``y * (1 - y)``: differentiating the ops themselves gives ``0 * inf =
+    nan`` where ``exp(-x)`` overflows (x below about -88)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as ``jax`` lowers it: ``1 / (1 + exp(-x))`` op by op
+    in the tensor's dtype (each op rounds in bfloat16, where a fused
+    ``torch.sigmoid`` rounds once and differs on about a third of the
+    inputs), differentiable wherever it is finite."""
+    return _Sigmoid.apply(x)
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
-    """``x * sigmoid(x)`` with ``sigmoid(x) = 1 / (1 + exp(-x))`` op by op in
-    the tensor's dtype: ``jax.nn.silu`` lowers to these ops, so in bfloat16
-    each one rounds (a fused ``torch.sigmoid`` rounds once and differs from
-    it on about a third of bfloat16 inputs)."""
-    return x * (1 / (1 + torch.exp(-x)))
+    """``x * sigmoid(x)`` with :func:`sigmoid`, as ``jax.nn.silu``."""
+    return x * sigmoid(x)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,7 @@ The port of ``repro.models.model``. ``build_model(cfg, device=...)`` returns
 a ``Model`` (an ``nn.Module`` holding its parameters) with
 
   forward(tokens, positions, caches, batch) -> (h, caches, aux)
-  loss(batch)                              -> (scalar, aux)   [forward only]
+  loss(batch)                              -> (scalar, aux)   [differentiable]
   prefill(tokens, caches, batch)           -> (logits [B, 1, V], caches)
   decode_step(tokens, pos, caches)         -> (logits [B, 1, V], caches)
   init_caches(batch, max_len)              -> {"stack": [per-layer dict], "enc_out"?}
@@ -20,15 +20,19 @@ MTP (deepseek-v3, ``mtp_depth > 0``) adds one attention block with a dense
 FFN applied to ``(h_t, emb(t+1))``, predicting token ``t + 2``; it enters
 the loss only, with weight 0.3. ``loss`` (with ``cross_entropy``, the
 blockwise ``_chunked_ce`` for ``loss_chunk > 0`` and the switch-style load
-term of a MoE router that is not aux-free) is ``repro``'s, evaluated
-forward only under ``torch.inference_mode``: no backward, no optimizer
-(training is ROADMAP queue 1, 'LM remainder').
+term of a MoE router that is not aux-free) is ``repro``'s and
+differentiable: ``repro_torch.train.loop`` takes its gradients with respect
+to every parameter (a shared block's summed over its applications, as
+``jax.grad`` sums them). Serving runs ``prefill`` / ``decode_step`` under
+``torch.inference_mode`` (``serve.engine``).
 
 ``rwkv_kernel`` (default True) runs each prefill chunk of every RWKV-6 layer
 through the ``rwkv6_chunk`` CUDA kernel on the card; ``rwkv_kernel=False``
 runs its plain version there instead (the yardstick). On the CPU both run
-the plain version. Attention, MLA, Mamba2 and the MoE dispatch run in plain
-PyTorch, as ``repro`` runs them in plain ``jnp``.
+the plain version. The kernel has no backward (``repro``'s Pallas kernel has
+none either): it refuses inputs that require gradients, so a model that
+trains is built with ``rwkv_kernel=False``. Attention, MLA, Mamba2 and the
+MoE dispatch run in plain PyTorch, as ``repro`` runs them in plain ``jnp``.
 """
 
 from __future__ import annotations
@@ -150,11 +154,11 @@ class Model(nn.Module):
         return h, new_caches, aux
 
     # -- entry points -----------------------------------------------------------
-    @torch.inference_mode()
     def loss(self, batch: dict):
-        """``repro``'s ``Model.loss``, forward only: (scalar, aux with
-        ``loss``). ``batch`` holds ``tokens`` and ``labels`` [B, S], optionally
-        ``mask`` and the frontends' inputs (tensors or arrays)."""
+        """``repro``'s ``Model.loss``: (scalar, aux with ``loss``),
+        differentiable with respect to the parameters. ``batch`` holds
+        ``tokens`` and ``labels`` [B, S], optionally ``mask`` and the
+        frontends' inputs (tensors or arrays)."""
         cfg = self.cfg
         batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
         tokens, labels = batch["tokens"].long(), batch["labels"].long()
@@ -229,14 +233,15 @@ class Model(nn.Module):
 
 
 def build_model(cfg: ModelConfig, device: torch.device | str = "cuda", rwkv_kernel: bool = True,
-                seed: int = 0, moe_impl: str = "local", loss_chunk: int = 0) -> Model:
+                seed: int = 0, moe_impl: str = "local", loss_chunk: int = 0,
+                requires_grad: bool = False) -> Model:
     """A ``Model`` initialised at random on ``device`` (the card unless the
     caller asks for the CPU) from ``torch.Generator(device).manual_seed(seed)``,
-    with the distributions and scales of ``repro``'s init. Parameters do not
-    require gradients: this is the serving path (``loss`` evaluates forward
-    only). ``loss_chunk`` is ``repro``'s blockwise cross-entropy chunk.
-    ``moe_impl="sharded"`` (``repro``'s expert-parallel MoE) is not ported
-    yet."""
+    with the distributions and scales of ``repro``'s init. Its parameters
+    require gradients only with ``requires_grad=True`` (training); by
+    default the model is frozen for serving. ``loss_chunk`` is ``repro``'s
+    blockwise cross-entropy chunk. ``moe_impl="sharded"`` (``repro``'s
+    expert-parallel MoE) is not ported yet."""
     model = Model(cfg, resolve_device(device), rwkv_kernel=rwkv_kernel, seed=seed,
                   moe_impl=moe_impl, loss_chunk=loss_chunk)
-    return model.requires_grad_(False)
+    return model.requires_grad_(requires_grad)

@@ -16,8 +16,10 @@ Routers: softmax top-k (deepseek-moe-16b) and sigmoid + bias aux-free
 dtype. Ties in the top-k go to the lower expert id, as ``jax.lax.top_k``
 breaks them.
 
-``repro``'s expert-parallel ``moe_sharded`` / ``moe_block_sharded`` and the
-training ``aux_loss`` are not ported yet (ROADMAP queue 1, 'LM remainder').
+:func:`aux_loss` is ``repro``'s switch-style balancing loss (``Model.loss``
+computes its own load term inline, as ``repro``'s does).
+``repro``'s expert-parallel ``moe_sharded`` / ``moe_block_sharded`` are not
+ported yet (ROADMAP queue 1, 'LM remainder').
 """
 
 from __future__ import annotations
@@ -26,9 +28,11 @@ import torch
 from torch import nn
 
 from repro_torch.core.two_stage import dispatch_slots
-from repro_torch.models.layers import matmul, normal_param, silu
+from repro_torch.models.layers import matmul, normal_param, sigmoid, silu
 
-__all__ = ["MoE", "expert_capacity", "experts_ffn", "moe_local", "moe_reference", "route"]
+__all__ = [
+    "MoE", "aux_loss", "expert_capacity", "experts_ffn", "moe_local", "moe_reference", "route",
+]
 
 
 # ---------------------------------------------------------------------------
@@ -65,18 +69,32 @@ def route(params: MoE, x: torch.Tensor, cfg):
     sigmoid scores renormalised over the chosen experts."""
     scores = matmul(x.float(), params.router)
     if cfg.router_aux_free:
-        affinity = 1 / (1 + torch.exp(-scores))  # jax.nn.sigmoid, op by op
+        affinity = sigmoid(scores)
         _, top_idx = _top_k(affinity + params.router_bias[None, :], cfg.top_k)
         top_w = torch.gather(affinity, 1, top_idx)
     else:
         probs = torch.softmax(scores, dim=-1)
         top_w, top_idx = _top_k(probs, cfg.top_k)
     top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-20)
+    return top_idx, top_w, _counts(top_idx, cfg.n_experts)
+
+
+def _counts(top_idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """Assignments per expert, float32 [E]."""
     flat = top_idx.reshape(-1)
     # index_add_ of ones, not bincount: bincount waits for the device to size its output
-    load = torch.zeros(cfg.n_experts, dtype=torch.float32, device=x.device).index_add_(
-        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=x.device))
-    return top_idx, top_w, load
+    return torch.zeros(n_experts, dtype=torch.float32, device=flat.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32, device=flat.device))
+
+
+def aux_loss(params: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Switch-style load-balancing loss: ``E * sum(frac * importance)``, with
+    ``frac`` the share of the softmax top-k assignments each expert gets and
+    ``importance`` its mean router probability. x: [T, D]."""
+    probs = torch.softmax(matmul(x.float(), params.router), dim=-1)
+    _, top_idx = _top_k(probs, cfg.top_k)
+    frac = _counts(top_idx, cfg.n_experts) / (x.shape[0] * cfg.top_k)
+    return cfg.n_experts * torch.sum(frac * probs.mean(0))
 
 
 # ---------------------------------------------------------------------------

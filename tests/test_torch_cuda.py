@@ -628,6 +628,54 @@ def test_cuda_rwkv6_chunk_raises_on_bad_arguments(cuda):
         rwkv_ops.rwkv6_chunk(*wide)
 
 
+def test_cuda_rwkv6_chunk_refuses_inputs_that_require_grad(cuda):
+    """The kernel has no backward: with gradients on, an input that requires
+    them raises instead of coming back cut from the graph; a model built with
+    the kernel cannot train, one without it trains on the plain core."""
+    args = _rwkv_inputs(cuda, 2, 8, 4, 16, "uniform", seed=4)
+    before = rwkv_ops.rwkv6_chunk.launches
+    for i in range(len(args)):
+        grad_args = [a.detach().requires_grad_(j == i) for j, a in enumerate(args)]
+        with pytest.raises(RuntimeError, match="no backward"):
+            rwkv_ops.rwkv6_chunk(*grad_args)
+    with torch.no_grad():
+        rwkv_ops.rwkv6_chunk(*[a.detach().requires_grad_() for a in args])
+    assert rwkv_ops.rwkv6_chunk.launches == before + 1
+    cfg = dataclasses.replace(get_config("rwkv6-3b", smoke=True), param_dtype="float32",
+                              compute_dtype="float32")
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 17))
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+    with pytest.raises(RuntimeError, match="no backward"):
+        build_model(cfg, device=cuda, requires_grad=True).loss(batch)
+    loss, _ = build_model(cfg, device=cuda, rwkv_kernel=False, requires_grad=True).loss(batch)
+    loss.backward()
+    assert rwkv_ops.rwkv6_chunk.launches == before + 1
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "deepseek-v3-671b", "rwkv6-3b", "zamba2-2.7b"])
+def test_cuda_train_step_matches_the_cpu(cuda, arch):
+    """One float32 train step of a smoke config on the card and on the CPU,
+    from the same weights and batch: loss rel 1e-5, gradient norm rel 1e-4,
+    no kernel launched."""
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import OptConfig
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), param_dtype="float32",
+                              compute_dtype="float32")
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, 33)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    cpu = build_model(cfg, device="cpu", rwkv_kernel=False, seed=2)
+    gpu = build_model(cfg, device=cuda, rwkv_kernel=False, seed=2)
+    gpu.load_state_dict(cpu.state_dict())
+    before = rwkv_ops.rwkv6_chunk.launches
+    metrics = [make_train_step(m, OptConfig())(init_train_state(m, OptConfig()), batch)[1]
+               for m in (cpu, gpu)]
+    assert rwkv_ops.rwkv6_chunk.launches == before
+    np.testing.assert_allclose(float(metrics[1]["loss"]), float(metrics[0]["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(metrics[1]["grad_norm"]), float(metrics[0]["grad_norm"]),
+                               rtol=1e-4)
+
+
 def test_cuda_rwkv6_3b_two_layers_fp32_chunked_prefill_equals_sequential(cuda):
     """rwkv6-3b at full width, 2 layers, float32: prefill on the kernel (a
     61-token prompt: one chunk of 64, padded) against the sequential oracle.

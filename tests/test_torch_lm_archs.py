@@ -16,7 +16,6 @@ legs are in tests/test_torch_cuda.py.
 """
 
 import dataclasses
-import importlib
 
 import jax
 import jax.numpy as jnp
@@ -258,22 +257,11 @@ def test_full_and_smoke_configs_build(arch):
 
 def test_unported_parts_raise_lm_remainder():
     """What the LM remainder still leaves out: the expert-parallel MoE
-    (``moe_impl="sharded"``) and training. The port has no training entry
-    point (``repro.train``, ``repro.launch.train``), and ``Model.loss``
-    evaluates forward only: its loss carries no graph to differentiate."""
+    (``moe_impl="sharded"``). Training is ported (tests/test_torch_train*.py)."""
     assert None not in ARCHS.values()
     cfg = get_config("deepseek-moe-16b", smoke=True)
     with pytest.raises(NotImplementedError, match="LM remainder"):
         build_model(cfg, device="cpu", moe_impl="sharded")
-    for module in ("repro_torch.train", "repro_torch.launch.train"):
-        with pytest.raises(ModuleNotFoundError):
-            importlib.import_module(module)
-    model = build_model(cfg, device="cpu")
-    toks = _prompts(cfg)
-    loss, _ = model.loss({"tokens": toks, "labels": toks})
-    assert not loss.requires_grad and loss.is_inference()
-    with pytest.raises(RuntimeError):
-        loss.backward()
 
 
 def test_serve_cli_defaults_to_gemma3_and_feeds_whisper_zero_frames(capsys):
