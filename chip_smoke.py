@@ -193,7 +193,33 @@ Phases, each of which fails the run on any error:
      cross-entropy + the switch load term. 7d: one float32 step of every
      arch's smoke config on the card against the CPU (loss rel 1e-5, norm
      rel 1e-4; deepseek-v3's router_bias moves by +-u or 0 per period, as on
-     the CPU). 7e: ``rwkv6_chunk`` refuses CUDA inputs that require grad.
+     the CPU). 7e: ``rwkv6_chunk`` refuses CUDA inputs that require grad;
+  8. expert parallel, with the launch counts set to 0 just before it and
+     read just after (no Pallas kernel lies on this path: repro computes the
+     sharded MoE and the collectives in plain jnp, so every count must stay
+     0), over meshes whose cells are all ``cuda:0``. 8a: one
+     deepseek-v3-671b MoE layer at full width (256 experts, top-8, bf16,
+     22.5 GB of experts), EP over the (2, 4) ("data", "model") mesh, 32
+     experts per cell: at capacity factor ceil(E / k) (no drops)
+     ``moe_block_sharded`` against ``moe_local`` in prefill layout (2 x 512)
+     and decode layout (8 x 1), y within 2^-5 of the largest output and the
+     loads equal, with the buffers' bytes reckoned first; both timed at
+     8 x 512 and 8 x 1 under the config's capacity factor, with their
+     dropped shares. 8b: deepseek-moe-16b whole, built with
+     ``moe_impl="sharded"`` on the (2, 4) mesh, serves 8 x 512 + 32; prefill
+     and decode timed sharded and, on the same weights, local, with the
+     dropped shares; its float32 cut (the prefix layer + one MoE layer,
+     capacity factor ceil(E / k)): sharded prefill + 8 decode steps against
+     its full forward and the sharded full forward against the local one
+     (1e-4 of the largest logit), one train step of 2 x 512 (loss rel 1e-5,
+     gradient norm rel 1e-4 against local). 8c: ``remesh_pspecs`` for the
+     ten full configs (meta-device shapes) on (2, 16, 16) and (16, 16)
+     meshes, every spec checked against its shape, the sharded leaves
+     counted; ``reshard_state`` of gemma3-1b's whole train state onto the
+     (2, 4) mesh from the card and from host memory, timed, every value
+     bit-equal. 8d: ``hierarchical_all_reduce`` against ``flat_all_reduce``
+     over a (2, 4) ("pod", "data") mesh, 64 MB of float32 per cell: the
+     largest difference (1e-6 of the largest sum) and the ms of each.
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` from the serving
 and LM paths, ``launches_compiler_phase`` from phase 3b,
@@ -202,6 +228,7 @@ phase 3d, ``launches_multidevice_phase`` from phase 3e,
 ``launches_attention_moe_phase`` from phase 5 (0),
 ``launches_lm_remainder_phase`` from phase 6 (0),
 ``launches_train_phase`` from phase 7 (0),
+``launches_expert_parallel_phase`` from phase 8 (0),
 ``device_ms_two_table_v`` / ``device_ms_table_v_plus_k512`` from phase 3d's
 part 6), then as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (the plain stage 2
@@ -266,7 +293,9 @@ from repro_torch.data.pipeline import (  # noqa: E402
     DvsStreamSource,
     make_source,
 )
-from repro_torch.distributed.mesh import make_mesh  # noqa: E402
+from repro_torch.distributed import collectives as ep_coll  # noqa: E402
+from repro_torch.distributed.elastic import remesh_pspecs, reshard_state  # noqa: E402
+from repro_torch.distributed.mesh import NamedSharding, make_mesh, tree_map  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.cam_match import ops as cam_ops  # noqa: E402
 from repro_torch.kernels.cam_match.ref import cam_counts  # noqa: E402
@@ -4082,6 +4111,401 @@ def phase_train(dev) -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 8: expert parallel (the sharded MoE, the sharding rules, re-meshing
+# and the hierarchical collectives) over meshes of this one card
+# ---------------------------------------------------------------------------
+EP_MESH = ((2, 4), ("data", "model"))  # 8 cells of the card: EP over both axes
+EP_CHECK_B, EP_CHECK_S = 2, 512  # 8a: prefill layout held against moe_local
+REMESHES = {"2x16x16": ((2, 16, 16), ("pod", "data", "model")),
+            "16x16": ((16, 16), ("data", "model"))}
+ALLREDUCE_BYTES = 64 << 20  # 8d: one float32 gradient per cell
+ALLREDUCE_TOL = 1e-6  # 8d: of the largest sum; 8 float32 terms added in two orders
+
+
+def _cells_of(dev, shape) -> list[torch.device]:
+    """``dev`` (with its index: ``cuda`` is ``cuda:0``) once per cell."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return [dev] * math.prod(shape)
+
+
+def _ep_mesh(dev, shape=EP_MESH[0], axes=EP_MESH[1]):
+    return make_mesh(shape, axes, devices=_cells_of(dev, shape))
+
+
+def _no_drop_cfg(cfg):
+    """``cfg`` at a capacity factor at which no expert and no shard can drop
+    (``ceil(E / k)``: every capacity reaches the tokens it could receive)."""
+    return dataclasses.replace(cfg, capacity_factor=float(math.ceil(cfg.n_experts / cfg.top_k)))
+
+
+def ep_buffer_bytes(cfg, t_cell: int, mesh) -> int:
+    """The bytes of the sharded dispatch's buffers at ``t_cell`` tokens per
+    cell, summed over the cells: the packed payload, what the exchange
+    delivers, each shard's expert buffer, its results and what comes back
+    (``[tp, cap_send, D]`` three times, ``[E / tp, cap_recv, D]`` twice) in
+    the activations' dtype, and the expert FFN's gate, up and product
+    (``[E / tp, cap_recv, moe_d_ff]``) of one cell at a time."""
+    tp = mesh.axes_size(moe_ops.ep_axes_for(cfg, mesh))
+    e_local, k, d = cfg.n_experts // tp, cfg.top_k, cfg.d_model
+    cap_send = max(8, int(t_cell * k / tp * cfg.capacity_factor))
+    cap_recv = max(8, int(t_cell * k / e_local * cfg.capacity_factor))
+    size = lm_layers.dt(cfg.param_dtype).itemsize
+    per_cell = (3 * tp * cap_send * d + 2 * e_local * cap_recv * d) * size
+    return mesh.size * per_cell + 3 * e_local * cap_recv * cfg.moe_d_ff * size
+
+
+def _dropped_share(cfg, load: torch.Tensor, t: int) -> float:
+    """moe_local's dropped share: each expert keeps the first ``cap`` of its
+    assignments."""
+    cap = moe_ops.expert_capacity(cfg, t)
+    return float((load - cap).clamp_min(0).sum()) / (t * cfg.top_k)
+
+
+def check_ep_layer(dev) -> dict:
+    """8a: one deepseek-v3-671b MoE layer at full width (256 experts of
+    7168 -> 2048 -> 7168, top-8, aux-free router, bf16), EP over the (2, 4)
+    mesh's ("data", "model"), 32 experts per cell. At a capacity factor at
+    which nothing drops, moe_block_sharded against moe_local on the same
+    weights and tokens, in prefill layout (2 x 512) and decode layout
+    (8 x 1): y within STREAM_TOL of the largest output, loads equal. Then
+    both timed (CUDA events) at 8 x 512 and 8 x 1 under the config's own
+    capacity factor, with each one's dropped share."""
+    cfg = get_config("deepseek-v3-671b")
+    nofill = _no_drop_cfg(cfg)
+    mesh = _ep_mesh(dev)
+    _free()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    layer = moe_ops.MoE(cfg, lm_layers.dt(cfg.param_dtype), dev, gen)
+    expert_bytes = _nbytes(*(getattr(layer, n) for n in moe_ops.EXPERT_PARAMS))
+    out = {"experts": cfg.n_experts, "top_k": cfg.top_k, "d_model": cfg.d_model,
+           "moe_d_ff": cfg.moe_d_ff, "mesh": list(EP_MESH[0]), "axes": list(EP_MESH[1]),
+           "ep_axes": list(moe_ops.ep_axes_for(cfg, mesh)), "expert_bytes": expert_bytes}
+    log(f"  8a deepseek-v3-671b MoE layer, experts {expert_bytes / 1e9:.2f} GB bf16, EP over "
+        f"{out['ep_axes']} of a {EP_MESH[0]} mesh of {dev} ({cfg.n_experts // mesh.size} experts "
+        f"per cell)")
+    with torch.inference_mode():
+        for what, (b, s) in (("prefill", (EP_CHECK_B, EP_CHECK_S)), ("decode", (LM_BATCH, 1))):
+            x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(layer.wi_up.dtype)
+            # tokens per cell: prefill cuts them over every cell; decode over
+            # "data" only (replicated over "model")
+            t_cell = b * s // (mesh.size if s > 1 else mesh.shape["data"])
+            reckoned = ep_buffer_bytes(nofill, t_cell, mesh)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            y, aux = moe_ops.moe_block_sharded(layer, x, nofill, mesh)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            ref, ref_aux = moe_ops.moe_local(layer, x.reshape(b * s, -1), nofill)
+            if not torch.equal(aux["load"], ref_aux["load"]):
+                raise AssertionError(f"8a {what}: the sharded and local loads differ")
+            if int(aux["dispatched"]) != b * s * cfg.top_k:
+                raise AssertionError(f"8a {what}: {int(aux['dispatched'])} of "
+                                     f"{b * s * cfg.top_k} assignments reached an expert")
+            err = _hold_rel(y, ref.reshape(b, s, -1), STREAM_TOL,
+                            f"8a {what}: moe_block_sharded against moe_local")
+            out[f"check_{what}"] = {"batch": b, "seq": s, "capacity_factor": nofill.capacity_factor,
+                                    "max_rel_err": err, "tol": STREAM_TOL, "loads_equal": True,
+                                    "reckoned_buffer_bytes": reckoned,
+                                    "measured_peak_bytes": peak}
+            log(f"  8a {what} {b} x {s}, capacity factor {nofill.capacity_factor} (no drops): "
+                f"sharded within {err:.3g} of moe_local (limit {STREAM_TOL}), loads equal; "
+                f"buffers reckoned {reckoned / 1e9:.2f} GB, measured peak "
+                f"{peak / 1e9:.2f} GB over the weights")
+            del x, y, ref
+            _free()
+        for what, (b, s) in (("prefill", (LM_BATCH, LM_PROMPT)), ("decode", (LM_BATCH, 1))):
+            x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev).to(layer.wi_up.dtype)
+            flat = x.reshape(b * s, -1)
+            sharded_ms = time_ms(lambda: moe_ops.moe_block_sharded(layer, x, cfg, mesh),
+                                 repeats=5, inner=2)
+            local_ms = time_ms(lambda: moe_ops.moe_local(layer, flat, cfg), repeats=5, inner=2)
+            _, aux = moe_ops.moe_block_sharded(layer, x, cfg, mesh)
+            _, laux = moe_ops.moe_local(layer, flat, cfg)
+            assigned = b * s * cfg.top_k
+            row = {"batch": b, "seq": s, "capacity_factor": cfg.capacity_factor,
+                   "sharded_ms": sharded_ms, "local_ms": local_ms,
+                   "sharded_dropped_share": 1 - float(aux["dispatched"]) / assigned,
+                   "local_dropped_share": _dropped_share(cfg, laux["load"], b * s)}
+            out[f"timed_{what}"] = row
+            log(f"  8a {what} {b} x {s} at capacity factor {cfg.capacity_factor}: sharded "
+                f"{sharded_ms:.3f} ms ({row['sharded_dropped_share']:.4f} dropped), moe_local "
+                f"{local_ms:.3f} ms ({row['local_dropped_share']:.4f} dropped)")
+            del x, flat
+    del layer
+    _free()
+    return out
+
+
+def _set_moe_impl(model, impl: str) -> None:
+    """Every block of ``model`` dispatches as ``impl`` says (the same weights)."""
+    model.moe_impl = impl
+    for block in model.stack:
+        block.moe_impl = impl
+
+
+@contextlib.contextmanager
+def _counted_dispatch():
+    """Records (tokens, assignments, assignments that reached an expert) of
+    every moe_block_sharded call while it is open, the counts as device
+    tensors (no wait for the device)."""
+    seen: list[tuple] = []
+    real = moe_ops.moe_block_sharded
+
+    def counted(params, x3, cfg, mesh, *args, **kwargs):
+        y, aux = real(params, x3, cfg, mesh, *args, **kwargs)
+        seen.append((x3.shape[0] * x3.shape[1], aux["load"].sum(), aux["dispatched"]))
+        return y, aux
+
+    moe_ops.moe_block_sharded = counted
+    try:
+        yield seen
+    finally:
+        moe_ops.moe_block_sharded = real
+
+
+def _sharded_drops(seen, prefill_tokens: int) -> dict:
+    """The sharded dispatch's dropped share in the prefills and in the
+    decode steps of ``seen``: the assignments that did not reach an expert
+    (a full send buffer or a full expert)."""
+    out = {}
+    for what, rows in (("prefill", [r for r in seen if r[0] == prefill_tokens]),
+                       ("decode", [r for r in seen if r[0] != prefill_tokens])):
+        assigned = float(sum(r[1] for r in rows))
+        dispatched = float(sum(r[2] for r in rows))
+        out[what] = {"calls": len(rows), "assignments": assigned, "dispatched": dispatched,
+                     "dropped_share": 1 - dispatched / assigned}
+    return out
+
+
+def phase8_deepseek_moe(dev) -> dict:
+    """8b: deepseek-moe-16b whole (bf16) built with moe_impl="sharded" on the
+    (2, 4) mesh: serves 8 x 512 + 32 through Engine.generate; prefill and
+    decode timed with the sharded dispatch and, on the same weights, with
+    moe_local, with each one's dropped share. Then phase 5a's float32 cut
+    (the prefix layer + one MoE layer, no-drop capacity factor): sharded
+    prefill + 8 decode steps against its own full forward, the sharded full
+    forward against the local one (FP32_TOL of the largest logit), and one
+    train step of 2 x 512 with loss and gradient norm against local
+    (LOSS_RTOL, NORM_RTOL)."""
+    cfg = get_config("deepseek-moe-16b")
+    mesh = _ep_mesh(dev)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    model, init_ms = _timed(lambda: build_model(cfg, device=dev, seed=SEED, moe_impl="sharded",
+                                                mesh=mesh))
+    prompts_np = np.random.default_rng(SEED).integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT))
+    prompts = torch.as_tensor(prompts_np, device=dev)
+    engine = Engine(model, ServeConfig(max_len=LM_PROMPT + LM_NEW))
+    tokens, gen_ms = _timed(lambda: engine.generate(prompts_np, LM_NEW))
+    if tokens.shape != (LM_BATCH, LM_NEW) or int(tokens.min()) < 0 or \
+            int(tokens.max()) >= cfg.vocab:
+        raise AssertionError(f"8b generate: tokens of shape {tuple(tokens.shape)}")
+    out = {"layers": cfg.n_layers, "init_ms": init_ms, "generate_ms": gen_ms,
+           "mesh": list(EP_MESH[0]), "ep_axes": list(moe_ops.ep_axes_for(cfg, mesh))}
+    with _counted_dispatch() as seen:
+        out["sharded"], _ = time_prefill_decode(model, prompts, tokens, LM_PROMPT + LM_NEW,
+                                                profile=False)
+    out["sharded"]["routing"] = _sharded_drops(seen, LM_BATCH * LM_PROMPT)
+    _set_moe_impl(model, "local")
+    out["local"], _ = time_prefill_decode(model, prompts, tokens, LM_PROMPT + LM_NEW,
+                                          profile=False)
+    with contextlib.redirect_stdout(io.StringIO()):
+        out["local"]["routing"] = moe_routing(model, cfg, prompts, tokens)
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    for impl in ("sharded", "local"):
+        r = out[impl]
+        pf, dc = r["routing"]["prefill"], r["routing"]["decode"]
+        log(f"  8b deepseek-moe-16b, {impl} dispatch: prefill {r['prefill_ms']:.2f} ms "
+            f"({r['prefill_tokens_per_s']:.0f} tokens/s), decode {r['decode_ms_per_step']:.2f} "
+            f"ms/step; dropped {pf['dropped_share']:.4f} in prefill, {dc['dropped_share']:.4f} "
+            f"in decode")
+    log(f"  8b generate {LM_BATCH} x {LM_PROMPT} + {LM_NEW} sharded: {gen_ms:.1f} ms; peak "
+        f"{out['max_memory_allocated_gb']:.2f} GB")
+    del model, engine
+    _free()
+
+    cfg32 = dataclasses.replace(_no_drop_cfg(cfg), n_periods=1, param_dtype="float32",
+                                compute_dtype="float32")
+    model = build_model(cfg32, device=dev, seed=SEED, moe_impl="sharded", mesh=mesh)
+    rng = np.random.default_rng(SEED)
+    p32 = torch.as_tensor(rng.integers(0, cfg.vocab, (2, LM_PROMPT)), device=dev)
+    t32 = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 9)), device=dev)
+    out["fp32_cut"] = check_against_full(model, p32, t32, None, FP32_TOL,
+                                         "8b deepseek-moe-16b fp32 cut, sharded")
+    seq = torch.cat([p32, t32], 1)
+    pos = torch.arange(seq.shape[1], device=dev).expand(seq.shape)
+    with torch.inference_mode():
+        full = {}
+        for impl in ("sharded", "local"):
+            _set_moe_impl(model, impl)
+            h, _, _ = model(seq, pos)
+            full[impl] = model._unembed(h)
+    out["fp32_cut"]["sharded_vs_local_rel_err"] = _hold_rel(
+        full["sharded"], full["local"], FP32_TOL, "8b fp32 cut: sharded against local logits")
+    del full, h
+    batch = _batch(cfg32, 2, LM_PROMPT)
+    opt = train_opt.OptConfig()
+    state = train_loop.init_train_state(model, opt)
+    steps = {}
+    for impl in ("sharded", "local"):
+        _set_moe_impl(model, impl)
+        _, metrics = train_loop.make_train_step(model, opt)(state, batch)
+        steps[impl] = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+        del metrics
+        _free()
+    for what, tol in (("loss", LOSS_RTOL), ("grad_norm", NORM_RTOL)):
+        rel = abs(steps["sharded"][what] - steps["local"][what]) / abs(steps["local"][what])
+        steps[f"{what}_rel_diff"] = rel
+        if not rel <= tol:
+            raise AssertionError(f"8b train step: {what} {steps['sharded'][what]} sharded "
+                                 f"against {steps['local'][what]} local (rel {rel:.3g})")
+    out["fp32_train_step"] = steps
+    log(f"  8b fp32 cut (prefix + 1 MoE layer, capacity factor {cfg32.capacity_factor}): sharded "
+        f"prefill + 8 decode steps within {out['fp32_cut']['max_rel_err']:.3g} of its full "
+        f"forward, sharded full forward within {out['fp32_cut']['sharded_vs_local_rel_err']:.3g} "
+        f"of local (limit {FP32_TOL}); train step 2 x {LM_PROMPT}: loss "
+        f"{steps['sharded']['loss']:.6f} (rel {steps['loss_rel_diff']:.2g}), grad norm "
+        f"{steps['sharded']['grad_norm']:.5f} (rel {steps['grad_norm_rel_diff']:.2g})")
+    del model, state
+    _free()
+    return out
+
+
+def phase8_remesh(dev) -> dict:
+    """8c: remesh_pspecs for the ten full configs (shapes from models built
+    on the meta device, nothing allocated) on (2, 16, 16) and (16, 16)
+    meshes of the card, every spec checked against its shape; the sharded
+    leaves counted per arch. Then gemma3-1b's whole train state (bf16
+    parameters, float32 moments, after one step of 2 x 64) re-placed on the
+    (2, 4) mesh by reshard_state from the card and from host memory, timed,
+    every value bit-equal and ``step`` kept."""
+    meshes = {name: make_mesh(shape, axes, devices=_cells_of(dev, shape))
+              for name, (shape, axes) in REMESHES.items()}
+    out = {"archs": {}}
+    for arch in sorted(ARCHS):
+        model = build_model(get_config(arch), device="meta")
+        shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        row = {"leaves": len(shapes)}
+        for name, mesh in meshes.items():
+            t0 = time.perf_counter()
+            specs = remesh_pspecs(model, shapes, mesh)
+            row[f"ms_{name}"] = (time.perf_counter() - t0) * 1e3
+            for leaf, spec in specs.items():
+                NamedSharding(mesh, spec).check(shapes[leaf])
+            row[f"sharded_{name}"] = sum(any(e is not None for e in sp) for sp in specs.values())
+        out["archs"][arch] = row
+        del model
+    log("  8c remesh_pspecs, sharded leaves of all (2x16x16 / 16x16): " + "; ".join(
+        f"{a} {r['sharded_2x16x16']} / {r['sharded_16x16']} of {r['leaves']}"
+        for a, r in out["archs"].items()))
+    cfg = get_config("gemma3-1b")
+    _free()
+    model = build_model(cfg, device=dev, seed=SEED)
+    opt = train_opt.OptConfig()
+    state, _ = train_loop.make_train_step(model, opt)(train_loop.init_train_state(model, opt),
+                                                     _batch(cfg, 2, 64))
+    del model
+    mesh = _ep_mesh(dev)
+    shapes = {n: tuple(p.shape) for n, p in state["params"].items()}
+    pspecs = remesh_pspecs(build_model(cfg, device="meta"), shapes, mesh)
+    host = tree_map(lambda t: t.cpu(), state)  # as a checkpoint restores it
+    state_bytes = _tree_bytes(state)
+    res = {"state_bytes": state_bytes,
+           "sharded_leaves": sum(any(e is not None for e in sp) for sp in pspecs.values())}
+    for where, src in (("card", state), ("host", host)):
+        placed, ms = _timed(lambda src=src: reshard_state(src, pspecs, mesh))
+        res[f"ms_from_{where}"] = ms
+        for name, want in state["params"].items():
+            if not torch.equal(placed["params"][name], want) or \
+                    placed["params"][name].device != mesh.home:
+                raise AssertionError(f"8c reshard_state from the {where}: {name} moved")
+        for moment in ("m", "v"):
+            for name, want in state["opt"][moment].items():
+                if not torch.equal(placed["opt"][moment][name], want):
+                    raise AssertionError(f"8c reshard_state from the {where}: {moment} {name}")
+        if not int(placed["opt"]["step"]) == int(state["opt"]["step"]) == 1:
+            raise AssertionError(f"8c reshard_state from the {where}: step changed")
+        del placed
+    out["reshard_state_gemma3_1b"] = res
+    log(f"  8c reshard_state, gemma3-1b train state ({state_bytes / 1e9:.2f} GB, "
+        f"{res['sharded_leaves']} of {len(pspecs)} parameters sharded on {EP_MESH[0]}): "
+        f"{res['ms_from_card']:.2f} ms from the card, {res['ms_from_host']:.1f} ms from host "
+        f"memory; every value bit-equal")
+    del state, host
+    _free()
+    return out
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return _nbytes(tree)
+
+
+def phase8_collectives(dev) -> dict:
+    """8d: hierarchical_all_reduce (reduce-scatter over data, sum over pod,
+    all-gather) against flat_all_reduce over a (2, 4) ("pod", "data") mesh
+    of the card, a 64 MB float32 gradient per cell: the largest difference
+    (within ALLREDUCE_TOL of the largest sum) and the ms of each (CUDA
+    events)."""
+    mesh = _ep_mesh(dev, (2, 4), ("pod", "data"))
+    n = ALLREDUCE_BYTES // 4
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = {cell: torch.randn(n, generator=gen, device=dev) for cell in mesh.cells()}
+    hier = ep_coll.hierarchical_all_reduce(mesh, x, "data", "pod")
+    flat = ep_coll.flat_all_reduce(mesh, x, ("pod", "data"))
+    worst = max(float((hier[c] - flat[c]).abs().max()) for c in mesh.cells())
+    rel = max(_hold_rel(hier[c], flat[c], ALLREDUCE_TOL, "8d hierarchical against flat")
+              for c in mesh.cells())
+    del hier, flat
+    out = {"bytes_per_cell": ALLREDUCE_BYTES, "cells": mesh.size, "max_abs_diff": worst,
+           "max_rel_diff": rel, "tol": ALLREDUCE_TOL,
+           "hierarchical_ms": time_ms(lambda: ep_coll.hierarchical_all_reduce(mesh, x, "data",
+                                                                              "pod"),
+                                      repeats=5, inner=2),
+           "flat_ms": time_ms(lambda: ep_coll.flat_all_reduce(mesh, x, ("pod", "data")),
+                              repeats=5, inner=2),
+           "cross_pod_bytes_hierarchical": ep_coll.all_reduce_cross_pod_bytes(
+               ALLREDUCE_BYTES, 2, 4, True),
+           "cross_pod_bytes_flat": ep_coll.all_reduce_cross_pod_bytes(ALLREDUCE_BYTES, 2, 4,
+                                                                      False)}
+    log(f"  8d all-reduce of {ALLREDUCE_BYTES >> 20} MB float32 per cell over (2, 4) (pod, data): "
+        f"hierarchical {out['hierarchical_ms']:.3f} ms, flat {out['flat_ms']:.3f} ms, largest "
+        f"difference {worst:.3g} ({rel:.3g} of the largest sum, limit {ALLREDUCE_TOL})")
+    del x
+    _free()
+    return out
+
+
+def phase_expert_parallel(dev) -> dict[str, int]:
+    """Phase 8: the launch counts set to 0 just before and read just after.
+    No Pallas kernel lies on this path (repro computes the sharded MoE and
+    the collectives in plain jnp), so it must launch none of the port's
+    kernels."""
+    t0 = time.perf_counter()
+    _reset_counts()
+    out = {"card": torch.cuda.get_device_name(0)}
+    for name, fn in (("8a_layer", check_ep_layer), ("8b_deepseek_moe", phase8_deepseek_moe),
+                     ("8c_remesh", phase8_remesh), ("8d_collectives", phase8_collectives)):
+        t1 = time.perf_counter()
+        out[name] = fn(dev)
+        out[name]["phase_seconds"] = time.perf_counter() - t1
+    counts = _read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"expert-parallel phase launched {counts}")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "chip_smoke_expert_parallel.json").write_text(json.dumps(out, indent=1))
+    log(f"expert-parallel phase: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k} {v['phase_seconds']:.1f}" for k, v in out.items() if isinstance(v, dict)
+        and "phase_seconds" in v) + f"), launches {counts}")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on the GPU only")
@@ -4099,6 +4523,7 @@ def main() -> None:
     attention_moe_launches = phase_attention_moe(dev)
     lm_remainder_launches = phase_lm_remainder(dev)
     train_launches = phase_train(dev)
+    expert_parallel_launches = phase_expert_parallel(dev)
     if set(launches) != set(kernels):
         raise AssertionError(f"serving legs launched {sorted(launches)}, kernels {sorted(kernels)}")
     for name, n in launches.items():
@@ -4112,6 +4537,7 @@ def main() -> None:
         kernels[name]["launches_attention_moe_phase"] = attention_moe_launches.get(name, 0)
         kernels[name]["launches_lm_remainder_phase"] = lm_remainder_launches.get(name, 0)
         kernels[name]["launches_train_phase"] = train_launches.get(name, 0)
+        kernels[name]["launches_expert_parallel_phase"] = expert_parallel_launches.get(name, 0)
         for shape, at in mm_kernels.items():
             if name in at:
                 kernels[name][f"device_ms_{shape}"] = at[name]["device_ms"]

@@ -1,14 +1,19 @@
-"""Architecture registry: ``get_config(arch, smoke=False)``.
+"""Architecture registry: ``get_config(arch, smoke=False)``, and the shape cells.
 
 ``ARCHS`` names the ten architectures of ``repro.configs``, each mapped to
 the port's field-for-field copy of its config module. The port builds the
 blocks of all ten: attention with a dense or MoE FFN, encoders, frontend
 stubs, RWKV-6, MLA with MTP (deepseek-v3-671b), Mamba2 with a shared
 attention block (zamba2-2.7b).
+
+``SHAPES`` are ``repro``'s per-arch input shapes and ``cells()`` its 40
+(arch x shape) cells with their applicability flags (DESIGN.md §5), field
+for field.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
@@ -28,6 +33,27 @@ ARCHS: dict[str, str] = {
 }
 
 
+
+
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = (
+    Shape("train_4k", 4096, 256, "train"),
+    Shape("prefill_32k", 32768, 32, "prefill"),
+    Shape("decode_32k", 32768, 128, "decode"),
+    Shape("long_500k", 524288, 1, "decode"),
+)
+
+# archs allowed to run long_500k (sub-quadratic families; DESIGN.md §5)
+LONG_OK = {"zamba2-2.7b", "rwkv6-3b"}
+
+
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in ARCHS:
         raise KeyError(f"unknown architecture {arch!r}; have {sorted(ARCHS)}")
@@ -35,4 +61,17 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     return mod.smoke() if smoke else mod.config()
 
 
-__all__ = ["ARCHS", "BlockSpec", "ModelConfig", "get_config"]
+def cells():
+    """All 40 (arch, shape, runnable, skip_reason) cells."""
+    out = []
+    for arch in ARCHS:
+        for shape in SHAPES:
+            skip = None
+            if shape.name == "long_500k" and arch not in LONG_OK:
+                skip = "full-attention family: long_500k skipped per shape rules"
+            out.append((arch, shape, skip is None, skip))
+    return out
+
+
+__all__ = ["ARCHS", "LONG_OK", "SHAPES", "BlockSpec", "ModelConfig", "Shape", "cells",
+           "get_config"]

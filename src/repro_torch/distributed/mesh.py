@@ -9,18 +9,24 @@ owns every device, as in ``repro`` (single-controller): a
 cells runs on one card, as ``repro``'s tests run meshes on fake CPU devices.
 
 * :class:`PartitionSpec` (``P``) names, per leading dim of an array, the
-  mesh axis it is cut along (``None``: not cut); trailing dims past the
-  spec and mesh axes it does not name are replicated.
+  mesh axis it is cut along, or a tuple of axes (cut over their product,
+  row-major with the first axis major, as ``jax.sharding.PartitionSpec``
+  orders it), or ``None`` (not cut); trailing dims past the spec and mesh
+  axes it does not name are replicated.
 * :class:`NamedSharding` cuts a global tensor into the cells' slabs
   (:meth:`~NamedSharding.shard`: a view where the cell's device is the
   tensor's, else a copy) and joins the cells' slabs back
   (:meth:`~NamedSharding.unshard`). A value *placed* on a mesh
   (:meth:`~NamedSharding.place`) is the global tensor on the mesh's first
   device, its home: the sharded step cuts it per step.
-* :func:`psum` and :func:`psum_scatter` are the collectives of the sharded
-  step, as plain functions over the list of one axis group's per-cell
-  tensors. Each sum is built in fresh tensors, never in a cell's own
-  buffer, so cells that share a device never read a half-summed slab.
+* :func:`psum`, :func:`psum_scatter`, :func:`all_to_all` and
+  :func:`all_gather` are the collectives of the sharded steps, as plain
+  functions over the list of one group's per-cell tensors
+  (:meth:`DeviceMesh.groups` lists the groups over one axis or a tuple of
+  axes, :meth:`DeviceMesh.index` a cell's rank in its group). Each result
+  is built in fresh tensors, never in a cell's own buffer, so cells that
+  share a device never read a half-summed slab. They are autograd ops:
+  gradients flow back through them to every cell's input.
 
 ``torch.distributed`` is not used: a rank per device would turn the
 fleet's single-process control plane into a distributed protocol, and two
@@ -44,6 +50,9 @@ __all__ = [
     "NamedSharding",
     "P",
     "PartitionSpec",
+    "all_gather",
+    "all_to_all",
+    "axes_tuple",
     "make_mesh",
     "named",
     "psum",
@@ -68,6 +77,12 @@ class PartitionSpec(tuple):
 
 
 P = PartitionSpec
+
+
+def axes_tuple(axes) -> tuple[str, ...]:
+    """A spec entry or collective's axes as a tuple of names: ``"model"``
+    gives ``("model",)``, a tuple stays as it is."""
+    return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
 def visible_devices(device: torch.device | str = "cuda") -> list[torch.device]:
@@ -116,17 +131,37 @@ class DeviceMesh:
     def device(self, cell: tuple[int, ...]) -> torch.device:
         return self.devices[cell]
 
-    def index(self, cell: tuple[int, ...], axis: str) -> int:
-        return cell[self.axis_names.index(axis)]
+    def axes_size(self, axes) -> int:
+        """The number of cells along ``axes`` (one name or a tuple)."""
+        return math.prod(self.shape[a] for a in axes_tuple(axes))
 
-    def groups(self, axis: str) -> list[list[tuple[int, ...]]]:
-        """The cells in groups along ``axis`` (the other coordinates fixed),
-        each group in axis order: the participants of one collective."""
-        k = self.axis_names.index(axis)
-        others = [range(n) for i, n in enumerate(self.devices.shape) if i != k]
+    def index(self, cell: tuple[int, ...], axes) -> int:
+        """``cell``'s rank along ``axes``: its coordinate on one axis, or
+        over a tuple the linear index, row-major with the first axis major
+        (``repro``'s ``_axes_linear_index``)."""
+        idx = 0
+        for a in axes_tuple(axes):
+            idx = idx * self.shape[a] + cell[self.axis_names.index(a)]
+        return idx
+
+    def groups(self, axes) -> list[list[tuple[int, ...]]]:
+        """The cells in groups along ``axes`` (one name or a tuple; the
+        other coordinates fixed), each group in rank order
+        (:meth:`index`): the participants of one collective."""
+        ks = [self.axis_names.index(a) for a in axes_tuple(axes)]
+        dims = self.devices.shape
+        others = [i for i in range(len(dims)) if i not in ks]
         out = []
-        for rest in itertools.product(*others):
-            out.append([(*rest[:k], j, *rest[k:]) for j in range(self.devices.shape[k])])
+        for rest in itertools.product(*(range(dims[i]) for i in others)):
+            group = []
+            for along in itertools.product(*(range(dims[k]) for k in ks)):
+                cell = [0] * len(dims)
+                for i, c in zip(others, rest):
+                    cell[i] = c
+                for k, c in zip(ks, along):
+                    cell[k] = c
+                group.append(tuple(cell))
+            out.append(group)
         return out
 
     def __repr__(self) -> str:
@@ -159,37 +194,38 @@ def make_mesh(shape, axis_names: tuple[str, ...] = AXES, devices=None,
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """How a global tensor is cut over ``mesh``: ``spec`` names one mesh
-    axis (or ``None``) per leading dim."""
+    axis, a tuple of axes or ``None`` per leading dim."""
 
     mesh: DeviceMesh
     spec: PartitionSpec
 
-    def _cut(self) -> list[tuple[int, str]]:
-        cut = [(dim, ax) for dim, ax in enumerate(self.spec) if ax is not None]
-        for _, ax in cut:
-            if ax not in self.mesh.shape:
-                raise ValueError(f"spec {self.spec} names axis {ax!r}, mesh has "
-                                 f"{self.mesh.axis_names}")
+    def _cut(self) -> list[tuple[int, tuple[str, ...]]]:
+        cut = [(dim, axes_tuple(ax)) for dim, ax in enumerate(self.spec) if ax is not None]
+        for _, axes in cut:
+            for ax in axes:
+                if ax not in self.mesh.shape:
+                    raise ValueError(f"spec {self.spec} names axis {ax!r}, mesh has "
+                                     f"{self.mesh.axis_names}")
         return cut
 
     def check(self, shape) -> None:
-        """Raise unless every cut dim divides over its mesh axis."""
+        """Raise unless every cut dim divides over its mesh axes."""
         shape = tuple(shape)
         if len(self.spec) > len(shape):
             raise ValueError(f"spec {self.spec} has more entries than shape {shape} has dims")
-        for dim, ax in self._cut():
-            n = self.mesh.shape[ax]
+        for dim, axes in self._cut():
+            n = self.mesh.axes_size(axes)
             if shape[dim] % n:
                 raise ValueError(
                     f"dim {dim} of shape {shape} does not divide over the {n} "
-                    f"devices of mesh axis {ax!r}"
+                    f"devices of mesh axes {axes}"
                 )
 
     def slab(self, x: torch.Tensor, cell: tuple[int, ...]) -> torch.Tensor:
         """``cell``'s slab of ``x``, a view on ``x``'s device."""
-        for dim, ax in self._cut():
-            w = x.shape[dim] // self.mesh.shape[ax]
-            x = x.narrow(dim, self.mesh.index(cell, ax) * w, w)
+        for dim, axes in self._cut():
+            w = x.shape[dim] // self.mesh.axes_size(axes)
+            x = x.narrow(dim, self.mesh.index(cell, axes) * w, w)
         return x
 
     def shard(self, x: torch.Tensor) -> dict[tuple[int, ...], torch.Tensor]:
@@ -208,8 +244,10 @@ class NamedSharding:
             if k == len(cut):
                 cell = tuple(fixed.get(name, 0) for name in self.mesh.axis_names)
                 return parts[cell].to(device, non_blocking=True)
-            dim, ax = cut[k]
-            pieces = [build({**fixed, ax: i}, k + 1) for i in range(self.mesh.shape[ax])]
+            dim, axes = cut[k]
+            sizes = [self.mesh.shape[a] for a in axes]
+            pieces = [build({**fixed, **dict(zip(axes, coords))}, k + 1)
+                      for coords in itertools.product(*(range(n) for n in sizes))]
             return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
 
         return build({}, 0)
@@ -284,4 +322,47 @@ def psum_scatter(parts: list[torch.Tensor], dim: int, tiled: bool = True) -> lis
             s = p.narrow(dim, j * w, w).to(pj.device, non_blocking=True)
             acc = s if acc is None else acc + s
         out.append(acc if tiled else acc.squeeze(dim))
+    return out
+
+
+def all_to_all(parts: list[torch.Tensor], split_dim: int, concat_dim: int,
+               tiled: bool = False) -> list[torch.Tensor]:
+    """``jax.lax.all_to_all`` over one group: every tensor is cut into the
+    group's ``n`` slabs along ``split_dim``, and cell ``j`` receives slab
+    ``j`` of every source, joined along ``concat_dim`` in source order, on
+    its own device. ``tiled=False``: ``split_dim`` has size ``n`` and is
+    dropped, and the sources stack along a new dim at ``concat_dim``."""
+    n = len(parts)
+    ndim = parts[0].ndim
+    split_dim, concat_dim = split_dim % ndim, concat_dim % ndim
+    if not tiled:
+        if parts[0].shape[split_dim] != n:
+            raise ValueError(f"dim {split_dim} of shape {tuple(parts[0].shape)} is not the "
+                             f"group's size {n}")
+        if split_dim < concat_dim:
+            concat_dim += 1
+            parts = [p.unsqueeze(concat_dim) for p in parts]
+        elif concat_dim < split_dim:
+            parts = [p.unsqueeze(concat_dim) for p in parts]
+            split_dim += 1
+    size = parts[0].shape[split_dim]
+    if size % n:
+        raise ValueError(f"dim {split_dim} of size {size} does not split over {n} cells")
+    w = size // n
+    out = []
+    for j, pj in enumerate(parts):
+        slabs = [p.narrow(split_dim, j * w, w).to(pj.device, non_blocking=True) for p in parts]
+        got = torch.cat(slabs, concat_dim)
+        out.append(got.squeeze(split_dim) if not tiled and split_dim != concat_dim else got)
+    return out
+
+
+def all_gather(parts: list[torch.Tensor], dim: int, tiled: bool = False) -> list[torch.Tensor]:
+    """Every cell receives the group's tensors in rank order on its own
+    device: joined along ``dim`` (``tiled=True``), or stacked along a new
+    dim at ``dim``."""
+    out = []
+    for pj in parts:
+        pieces = [p.to(pj.device, non_blocking=True) for p in parts]
+        out.append(torch.cat(pieces, dim) if tiled else torch.stack(pieces, dim))
     return out

@@ -35,11 +35,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models.layers import RMSNorm, apply_rope, matmul, normal_param, rmsnorm
+from repro_torch.models.layers import (
+    RMSNorm, apply_rope, matmul, normal_param, rmsnorm, rmsnorm_spec,
+)
 
 __all__ = [
     "NEG_INF", "Attention", "attend_chunked", "attend_dense", "attention_core",
-    "attention_layer", "init_kv_cache",
+    "attention_layer", "attention_spec", "init_kv_cache",
 ]
 
 NEG_INF = -2.0e38
@@ -48,6 +50,19 @@ NEG_INF = -2.0e38
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
+def attention_spec(cfg) -> dict:
+    p = {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_spec()
+        p["k_norm"] = rmsnorm_spec()
+    return p
+
+
 class Attention(nn.Module):
     """The parameters of ``repro.models.attention.init_attention``, under its names."""
 

@@ -16,8 +16,14 @@ position marked ``shared``; each application keeps its own cache in the
 per-layer list, as ``repro`` stacks the shared slot's cache per period.
 Without caches, each period may run under activation checkpointing
 (``cfg.remat``), as ``repro``'s scan body runs under ``jax.checkpoint``.
-``moe_impl="sharded"`` raises ``NotImplementedError`` (ROADMAP queue 1,
-'LM remainder').
+A MoE block dispatches with ``moe_local`` (``moe_impl="local"``) or, with
+``moe_impl="sharded"`` and a ``mesh``, with the expert-parallel
+``moe_block_sharded`` (``repro``'s ``apply_block`` chooses the same way).
+
+:func:`block_spec_tree` and :meth:`Stack.spec` give ``repro``'s tree of
+logical axes for the stack's parameters: ``periods/b{i}`` once per period
+position (its leaves stacked over the periods in ``repro``), ``prefix{i}``,
+``remainder{i}`` and ``shared_block``.
 """
 
 from __future__ import annotations
@@ -32,18 +38,46 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import MLP, RMSNorm, dt, mlp
+from repro_torch.models.layers import MLP, RMSNorm, dt, mlp, mlp_spec, rmsnorm_spec
 
-__all__ = ["Block", "Stack", "check_ported", "init_block_cache"]
+__all__ = ["Block", "Stack", "block_spec_tree", "check_moe_impl", "init_block_cache"]
 
-_LATER = "is not ported to repro_torch yet (ROADMAP queue 1, 'LM remainder')"
+MOE_IMPLS = ("local", "sharded")
 
 
-def check_ported(cfg: ModelConfig, moe_impl: str = "local") -> None:
-    """Raise ``NotImplementedError`` for what the port's stack cannot build:
-    the expert-parallel MoE."""
-    if moe_impl != "local":
-        raise NotImplementedError(f"moe_impl={moe_impl!r} (expert-parallel MoE) {_LATER}")
+def check_moe_impl(moe_impl: str, mesh) -> None:
+    """Raise ``ValueError`` for an unknown ``moe_impl``, or ``"sharded"``
+    without a mesh to shard the experts over."""
+    if moe_impl not in MOE_IMPLS:
+        raise ValueError(f"moe_impl={moe_impl!r}; have {MOE_IMPLS}")
+    if moe_impl == "sharded" and mesh is None:
+        raise ValueError('moe_impl="sharded" needs a mesh (distributed.mesh.make_mesh)')
+
+
+def block_spec_tree(spec: BlockSpec, cfg: ModelConfig, cross: bool = False) -> dict:
+    """The logical axes of one block's parameters, under their names."""
+    p: dict = {"pre_norm": rmsnorm_spec()}
+    if spec.kind == "attn":
+        p["inner"] = attn_mod.attention_spec(cfg)
+    elif spec.kind == "mla":
+        p["inner"] = mla_mod.mla_spec(cfg)
+    elif spec.kind == "mamba2":
+        p["inner"] = ssm_mod.mamba2_spec(cfg)
+    elif spec.kind == "rwkv6":
+        p["inner"] = rwkv_mod.rwkv6_spec(cfg)
+    if cross:
+        p["cross_norm"] = rmsnorm_spec()
+        p["cross"] = attn_mod.attention_spec(cfg)
+    if cfg.post_block_norm:
+        p["post_norm"] = rmsnorm_spec()
+    if spec.ffn != "none":
+        p["ffn_norm"] = rmsnorm_spec()
+        p["ffn"] = mlp_spec() if spec.ffn == "dense" else moe_mod.moe_spec(cfg)
+        if spec.ffn == "moe" and cfg.n_shared_experts:
+            p["ffn_shared"] = mlp_spec()
+        if cfg.post_block_norm:
+            p["ffn_post_norm"] = rmsnorm_spec()
+    return p
 
 
 def init_block_cache(spec: BlockSpec, cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -65,13 +99,17 @@ class Block(nn.Module):
     """pre_norm -> inner -> [post_norm] -> residual; [cross_norm -> cross
     attention -> residual]; ffn_norm -> ffn (+ shared experts) ->
     [ffn_post_norm] -> residual. ``repro``'s ``init_block`` /
-    ``apply_block``, with its parameter names."""
+    ``apply_block``, with its parameter names. A MoE FFN dispatches as
+    ``moe_impl`` says, over ``mesh`` when sharded."""
 
     def __init__(self, spec: BlockSpec, cfg: ModelConfig, dtype, device, gen: torch.Generator,
-                 cross: bool = False):
+                 cross: bool = False, moe_impl: str = "local", mesh=None):
         super().__init__()
+        check_moe_impl(moe_impl, mesh)
         self.spec = spec
         self.cfg = cfg
+        self.moe_impl = moe_impl
+        self.mesh = mesh
         d = cfg.d_model
         self.pre_norm = RMSNorm(d, cfg.norm_eps, device)
         if spec.kind == "attn":
@@ -133,9 +171,12 @@ class Block(nn.Module):
             if spec.ffn == "dense":
                 out2 = mlp(self.ffn, h2)
             else:
-                b, s, d = h2.shape
-                y, moe_aux = moe_mod.moe_local(self.ffn, h2.reshape(b * s, d), cfg)
-                out2 = y.reshape(b, s, d)
+                if self.moe_impl == "sharded":
+                    out2, moe_aux = moe_mod.moe_block_sharded(self.ffn, h2, cfg, self.mesh)
+                else:
+                    b, s, d = h2.shape
+                    y, moe_aux = moe_mod.moe_local(self.ffn, h2.reshape(b * s, d), cfg)
+                    out2 = y.reshape(b, s, d)
                 aux["moe_load"] = moe_aux["load"]
                 if cfg.n_shared_experts:
                     out2 = out2 + mlp(self.ffn_shared, h2)
@@ -153,20 +194,21 @@ class Stack(nn.Module):
     ``"shared_block"`` (its layers have no child of their own), so
     ``state_dict()`` and ``parameters()`` both hold its parameters once."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device, gen: torch.Generator, cross: bool = False):
+    def __init__(self, cfg: ModelConfig, dtype, device, gen: torch.Generator, cross: bool = False,
+                 moe_impl: str = "local", mesh=None):
         super().__init__()
-        check_ported(cfg)
         self.cfg = cfg
+        self.cross = cross
         specs = (*cfg.prefix_layers, *cfg.period * cfg.n_periods, *cfg.remainder)
         shared = [spec for spec in cfg.period if spec.shared]
         if shared:
-            self.shared_block = Block(shared[0], cfg, dtype, device, gen, cross)
+            self.shared_block = Block(shared[0], cfg, dtype, device, gen, cross, moe_impl, mesh)
         layers = []
         for i, spec in enumerate(specs):
             if spec.shared:
                 layers.append(self.shared_block)
             else:
-                layers.append(Block(spec, cfg, dtype, device, gen, cross))
+                layers.append(Block(spec, cfg, dtype, device, gen, cross, moe_impl, mesh))
                 self.add_module(str(i), layers[-1])
         self._layers = tuple(layers)  # a tuple is not registered: the blocks are, once each
 
@@ -178,6 +220,21 @@ class Stack(nn.Module):
 
     def __getitem__(self, i: int) -> Block:
         return self._layers[i]
+
+    def spec(self) -> dict:
+        """``repro``'s ``Stack.spec()``: the logical axes of the stack's
+        parameters in ``repro``'s tree (``periods/b{i}`` for each unshared
+        period position, ``shared_block``, ``prefix{i}``, ``remainder{i}``)."""
+        cfg = self.cfg
+        tree: dict = {"periods": {f"b{i}": block_spec_tree(b, cfg, self.cross)
+                                  for i, b in enumerate(cfg.period) if not b.shared}}
+        shared = [b for b in cfg.period if b.shared]
+        if shared:
+            tree["shared_block"] = block_spec_tree(shared[0], cfg, self.cross)
+        for name, blocks in (("prefix", cfg.prefix_layers), ("remainder", cfg.remainder)):
+            for i, b in enumerate(blocks):
+                tree[f"{name}{i}"] = block_spec_tree(b, cfg, self.cross)
+        return tree
 
     def init_caches(self, batch: int, max_len: int, dtype=None) -> list[dict[str, torch.Tensor]]:
         """One cache per layer, a shared block's applications each their own:

@@ -6,7 +6,11 @@ same names (so ``convert.lm_params_from_numpy`` maps one tree onto the other),
 drawn from an explicit ``torch.Generator`` with the same distributions and
 scales, and a function that applies it with ``repro``'s dtype rules: a
 product of two dtypes runs in the wider one, as JAX promotes it
-(:func:`matmul`).
+(:func:`matmul`). Each ``<layer>_spec()`` gives ``repro``'s tree of
+*logical axis* tuples for the layer's parameters (``distributed.sharding``).
+
+On the meta device (``build_model(..., device="meta")``) a layer holds its
+parameters' shapes and dtypes and draws nothing: no generator is needed.
 """
 
 from __future__ import annotations
@@ -15,8 +19,9 @@ import torch
 from torch import nn
 
 __all__ = [
-    "DTYPES", "MLP", "Embedding", "RMSNorm", "apply_rope", "dt", "embed", "gelu", "matmul", "mlp",
-    "normal_param", "rmsnorm", "rope_freqs", "sigmoid", "silu", "softcap", "unembed",
+    "DTYPES", "MLP", "Embedding", "RMSNorm", "apply_rope", "dt", "embed", "embedding_spec", "gelu",
+    "matmul", "mlp", "mlp_spec", "normal_param", "rmsnorm", "rmsnorm_spec", "rope_freqs",
+    "sigmoid", "silu", "softcap", "unembed",
 ]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -29,10 +34,11 @@ def dt(name: str) -> torch.dtype:
 def normal_param(shape, dtype, scale: float, gen: torch.Generator, device) -> nn.Parameter:
     """``normal(shape) * scale`` drawn in ``dtype``, as ``jax.random.normal(key,
     shape, dtype) * scale`` draws it (the numbers differ: tests carry the JAX
-    weights across instead)."""
+    weights across instead). On the meta device nothing is drawn."""
     t = torch.empty(shape, dtype=dtype, device=device)
-    t.normal_(generator=gen)
-    t.mul_(scale)
+    if t.device.type != "meta":
+        t.normal_(generator=gen)
+        t.mul_(scale)
     return nn.Parameter(t)
 
 
@@ -92,6 +98,10 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Te
     return (x * (1.0 + scale.float())).to(orig)
 
 
+def rmsnorm_spec() -> dict:
+    return {"scale": ("embed",)}
+
+
 class RMSNorm(nn.Module):
     def __init__(self, d: int, eps: float, device=None):
         super().__init__()
@@ -132,6 +142,12 @@ class Embedding(nn.Module):
         self.table = normal_param((vocab, d), dtype, 0.02, gen, device)
 
 
+def embedding_spec(for_input: bool = False) -> dict:
+    """Input tables shard the embed dim (token gathers stay local to a
+    shard), output tables the vocab dim (the logits product)."""
+    return {"table": ("vocab_in", "embed") if for_input else ("vocab", "embed")}
+
+
 def embed(table: torch.Tensor, tokens: torch.Tensor, scale: bool, d_model: int) -> torch.Tensor:
     x = table[tokens]
     if scale:
@@ -159,6 +175,10 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return mlp(self, x)
+
+
+def mlp_spec() -> dict:
+    return {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"), "wo": ("mlp", "embed")}
 
 
 def mlp(params: MLP, x: torch.Tensor, act: str = "silu") -> torch.Tensor:

@@ -29,9 +29,27 @@ import torch
 from torch import nn
 
 from repro_torch.models.attention import NEG_INF, _out_proj, attention_core, project_heads
-from repro_torch.models.layers import RMSNorm, apply_rope, matmul, normal_param
+from repro_torch.models.layers import RMSNorm, apply_rope, matmul, normal_param, rmsnorm_spec
 
-__all__ = ["MLA", "init_mla_cache", "mla_layer"]
+__all__ = ["MLA", "init_mla_cache", "mla_layer", "mla_spec"]
+
+
+def mla_spec(cfg) -> dict:
+    p = {
+        "w_dkv": ("embed", "kv_lora"),
+        "kv_norm": rmsnorm_spec(),
+        "w_kr": ("embed", "head_dim"),
+        "w_uk": ("kv_lora", "heads", "head_dim"),
+        "w_uv": ("kv_lora", "heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+    }
+    if cfg.q_lora_rank:
+        p["w_dq"] = ("embed", "q_lora")
+        p["q_norm"] = rmsnorm_spec()
+        p["w_uq"] = ("q_lora", "heads", "head_dim")
+    else:
+        p["w_uq"] = ("embed", "heads", "head_dim")
+    return p
 
 
 class MLA(nn.Module):

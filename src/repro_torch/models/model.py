@@ -8,6 +8,7 @@ a ``Model`` (an ``nn.Module`` holding its parameters) with
   prefill(tokens, caches, batch)           -> (logits [B, 1, V], caches)
   decode_step(tokens, pos, caches)         -> (logits [B, 1, V], caches)
   init_caches(batch, max_len)              -> {"stack": [per-layer dict], "enc_out"?}
+  param_specs()                            -> {parameter name: logical axes}
 
 Modality frontends are stubs, as in ``repro``: audio (whisper) takes
 precomputed frame embeddings ``batch["frames"]`` [B, enc_seq, D] through an
@@ -33,6 +34,14 @@ the plain version. The kernel has no backward (``repro``'s Pallas kernel has
 none either): it refuses inputs that require gradients, so a model that
 trains is built with ``rwkv_kernel=False``. Attention, MLA, Mamba2 and the
 MoE dispatch run in plain PyTorch, as ``repro`` runs them in plain ``jnp``.
+
+``moe_impl="sharded"`` with a ``mesh`` (``distributed.mesh.make_mesh``, which
+may repeat one device) runs every MoE block's experts expert-parallel over
+the mesh (``models.moe.moe_block_sharded``) in the forward, the loss and its
+backward, prefill and decode alike. ``device="meta"`` builds the model's
+shapes and dtypes without allocating or drawing anything, for any config
+(deepseek-v3-671b included): ``distributed.elastic.remesh_pspecs`` resolves
+its shardings from them.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.convert import repro_path
 from repro_torch.core.device import resolve_device
 from repro_torch.models import backbone as bb
 from repro_torch.models import layers as L
@@ -77,18 +87,22 @@ class MTP(nn.Module):
 
 class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device, rwkv_kernel: bool = True, seed: int = 0,
-                 moe_impl: str = "local", loss_chunk: int = 0):
+                 moe_impl: str = "local", loss_chunk: int = 0, mesh=None):
         super().__init__()
-        bb.check_ported(cfg, moe_impl)
+        bb.check_moe_impl(moe_impl, mesh)
         self.cfg = cfg
         self.rwkv_kernel = rwkv_kernel
+        self.moe_impl = moe_impl
+        self.mesh = mesh
         # > 0: blockwise cross-entropy over sequence chunks of this length
         # (never the full [B, S, V] logits)
         self.loss_chunk = loss_chunk
         dtype = L.dt(cfg.param_dtype)
-        gen = torch.Generator(device=device).manual_seed(seed)
+        # the meta device draws nothing, and has no generator
+        gen = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
         self.embedding = L.Embedding(cfg.vocab, cfg.d_model, dtype, device, gen)
-        self.stack = bb.Stack(cfg, dtype, device, gen, cross=cfg.n_enc_layers > 0)
+        self.stack = bb.Stack(cfg, dtype, device, gen, cross=cfg.n_enc_layers > 0,
+                              moe_impl=moe_impl, mesh=mesh)
         self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, device)
         if not cfg.tie_embeddings:
             self.unembed = L.Embedding(cfg.vocab, cfg.d_model, dtype, device, gen)
@@ -104,6 +118,45 @@ class Model(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embedding.table.device
+
+    def spec_tree(self) -> dict:
+        """``repro``'s ``Model.param_specs()``: the logical axes of every
+        parameter, in ``repro``'s tree (scanned periods once per position)."""
+        cfg = self.cfg
+        tree: dict = {
+            # untied input tables shard embed (gather-local); tied tables keep
+            # vocab sharding for the dominant unembed product
+            "embedding": L.embedding_spec(for_input=not cfg.tie_embeddings),
+            "stack": self.stack.spec(),
+            "final_norm": L.rmsnorm_spec(),
+        }
+        if not cfg.tie_embeddings:
+            tree["unembed"] = L.embedding_spec()
+        if cfg.n_enc_layers:
+            tree["encoder"] = self.encoder.spec()
+            tree["enc_norm"] = L.rmsnorm_spec()
+        if cfg.mtp_depth:
+            tree["mtp"] = {
+                "proj": ("embed", "embed_out"),
+                "block": bb.block_spec_tree(BlockSpec(kind="attn"), cfg),
+                "norm_h": L.rmsnorm_spec(),
+                "norm_e": L.rmsnorm_spec(),
+            }
+        return tree
+
+    def param_specs(self) -> dict[str, tuple]:
+        """The logical axes of every parameter, keyed by its name in
+        ``named_parameters()``: ``repro``'s spec of the same leaf, found
+        through ``convert.repro_path`` (each layer of a scanned period takes
+        its period position's spec)."""
+        tree = self.spec_tree()
+        out = {}
+        for name, _ in self.named_parameters():
+            node = tree
+            for key in repro_path(self.cfg, name)[0]:
+                node = node[key]
+            out[name] = node
+        return out
 
     # -- pieces --------------------------------------------------------------
     def _embed(self, tokens: torch.Tensor, batch: dict | None) -> torch.Tensor:
@@ -234,14 +287,16 @@ class Model(nn.Module):
 
 def build_model(cfg: ModelConfig, device: torch.device | str = "cuda", rwkv_kernel: bool = True,
                 seed: int = 0, moe_impl: str = "local", loss_chunk: int = 0,
-                requires_grad: bool = False) -> Model:
+                requires_grad: bool = False, mesh=None) -> Model:
     """A ``Model`` initialised at random on ``device`` (the card unless the
     caller asks for the CPU) from ``torch.Generator(device).manual_seed(seed)``,
-    with the distributions and scales of ``repro``'s init. Its parameters
-    require gradients only with ``requires_grad=True`` (training); by
-    default the model is frozen for serving. ``loss_chunk`` is ``repro``'s
-    blockwise cross-entropy chunk. ``moe_impl="sharded"`` (``repro``'s
-    expert-parallel MoE) is not ported yet."""
+    with the distributions and scales of ``repro``'s init; on ``"meta"``,
+    its shapes and dtypes only. Its parameters require gradients only with
+    ``requires_grad=True`` (training); by default the model is frozen for
+    serving. ``loss_chunk`` is ``repro``'s blockwise cross-entropy chunk.
+    ``moe_impl="sharded"`` runs the MoE blocks expert-parallel over ``mesh``
+    (a ``distributed.mesh.DeviceMesh``), as ``repro``'s ``build_model(cfg,
+    moe_impl="sharded", mesh=...)`` does."""
     model = Model(cfg, resolve_device(device), rwkv_kernel=rwkv_kernel, seed=seed,
-                  moe_impl=moe_impl, loss_chunk=loss_chunk)
+                  moe_impl=moe_impl, loss_chunk=loss_chunk, mesh=mesh)
     return model.requires_grad_(requires_grad)

@@ -9,7 +9,15 @@ dropped.
 
   * :func:`moe_reference`: every expert computed densely for every token
     (the oracle, small sizes only);
-  * :func:`moe_local`: the two-stage dispatch on one device.
+  * :func:`moe_local`: the two-stage dispatch on one device;
+  * :func:`moe_block_sharded` / :func:`moe_sharded`: expert parallelism over
+    a :class:`~repro_torch.distributed.mesh.DeviceMesh`. An expert shard is
+    the paper's cluster and the expert id within it the tag: stage 1 is an
+    ``all_to_all`` of token payloads and tags to their destination shard,
+    stage 2 the shard's local dispatch by tag. ``repro`` runs this inside
+    ``shard_map``; the port runs each phase for every cell in turn, in bulk
+    synchronous steps with the mesh collectives between them, as the sharded
+    engine step does (``core.event_engine``).
 
 Routers: softmax top-k (deepseek-moe-16b) and sigmoid + bias aux-free
 (deepseek-v3). The router and its bias are float32 whatever the parameter
@@ -18,21 +26,26 @@ breaks them.
 
 :func:`aux_loss` is ``repro``'s switch-style balancing loss (``Model.loss``
 computes its own load term inline, as ``repro``'s does).
-``repro``'s expert-parallel ``moe_sharded`` / ``moe_block_sharded`` are not
-ported yet (ROADMAP queue 1, 'LM remainder').
 """
 
 from __future__ import annotations
+
+import math
+from types import SimpleNamespace
 
 import torch
 from torch import nn
 
 from repro_torch.core.two_stage import dispatch_slots
+from repro_torch.distributed import mesh as mesh_mod
 from repro_torch.models.layers import matmul, normal_param, sigmoid, silu
 
 __all__ = [
-    "MoE", "aux_loss", "expert_capacity", "experts_ffn", "moe_local", "moe_reference", "route",
+    "EXPERT_PARAMS", "MoE", "aux_loss", "ep_axes_for", "expert_capacity", "experts_ffn",
+    "moe_block_sharded", "moe_local", "moe_reference", "moe_sharded", "moe_spec", "route",
 ]
+
+EXPERT_PARAMS = ("wi_gate", "wi_up", "wo")  # [E, ...]: cut over the EP axes
 
 
 # ---------------------------------------------------------------------------
@@ -50,6 +63,16 @@ class MoE(nn.Module):
         self.wi_gate = normal_param((e, d, f), dtype, s_in, gen, device)
         self.wi_up = normal_param((e, d, f), dtype, s_in, gen, device)
         self.wo = normal_param((e, f, d), dtype, s_out, gen, device)
+
+
+def moe_spec(cfg) -> dict:
+    return {
+        "router": ("embed", None),
+        "router_bias": (None,),
+        "wi_gate": ("experts", "embed", "mlp"),
+        "wi_up": ("experts", "embed", "mlp"),
+        "wo": ("experts", "mlp", "embed"),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -153,3 +176,200 @@ def moe_reference(params: MoE, x: torch.Tensor, cfg):
     all_out = experts_ffn(params, x[None].expand(cfg.n_experts, t, d))
     y = torch.einsum("te,etd->td", combine, all_out.float()).to(x.dtype)
     return y, {"load": load}
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism over a device mesh
+# ---------------------------------------------------------------------------
+def _scatter_rows(rows: torch.Tensor, idx: torch.Tensor, n: int, fill=0) -> torch.Tensor:
+    """``[n, ...]`` of ``fill`` with ``rows[a]`` at row ``idx[a]``; an index
+    of ``n`` (a dropped row) lands on a sentinel row that is cut off. Kept
+    indices are distinct, so this is ``repro``'s scatter into zeros (or
+    into -1 for the tags)."""
+    out = torch.full((n + 1, *rows.shape[1:]), fill, dtype=rows.dtype, device=rows.device)
+    return out.index_copy(0, idx.long(), rows)[:-1]
+
+
+def _pack(params, x: torch.Tensor, cfg, tp: int, cap_send: int, owned):
+    """Phase 1 of one cell: route its tokens and pack the per-destination
+    send buffers. Returns the ``[tp, cap_send, D]`` payloads, the
+    ``[tp, cap_send]`` tags (-1 where empty), what the combine needs
+    (``slot``, ``keep``, ``top_w``) and the cell's emitted load ``[E]``."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    e_local = e // tp
+    top_idx, top_w, _ = route(params, x, cfg)
+    flat_e = top_idx.reshape(-1)  # [T*k]: the emitted tag stream
+    if owned is not None:
+        flat_e = torch.where(owned.repeat_interleave(k), flat_e, -1)
+    # load counts only the assignments this cell emits (exact once summed)
+    emitted = flat_e >= 0
+    load = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
+        0, flat_e.clamp_min(0), emitted.float())
+    dest = torch.where(emitted, flat_e // e_local, -1)  # the destination shard
+    tag = flat_e % e_local  # the expert within it
+    slot, keep = dispatch_slots(torch.where(emitted, dest, tp), tp, cap_send)
+    keep = keep & emitted
+    token_of = torch.arange(t, device=x.device).repeat_interleave(k)
+    drop = tp * cap_send
+    idx = torch.where(keep, slot, drop)
+    payload = _scatter_rows(x[token_of], idx, drop).reshape(tp, cap_send, d)
+    tags = _scatter_rows(torch.where(keep, tag, -1), idx, drop, fill=-1).reshape(tp, cap_send)
+    return payload, tags, (slot, keep, top_w), load
+
+
+def _expert_pass(params, ev_x: torch.Tensor, ev_tag: torch.Tensor, e_local: int,
+                 cap_recv: int):
+    """Phase 3 of one cell: the received events dispatched by tag into its
+    experts' buffers and through them; each event picks its result back up
+    (zero where it was dropped). Returns (results, events dispatched)."""
+    n, d = ev_x.shape
+    valid = ev_tag >= 0
+    slot2, keep2 = dispatch_slots(torch.where(valid, ev_tag, e_local), e_local, cap_recv)
+    keep2 = keep2 & valid
+    drop2 = e_local * cap_recv
+    buf = _scatter_rows(ev_x, torch.where(keep2, slot2, drop2), drop2)
+    out_buf = experts_ffn(params, buf.reshape(e_local, cap_recv, d)).reshape(drop2, d)
+    ev_out = out_buf[slot2.clamp_min(0).long()] * keep2[:, None].to(ev_x.dtype)
+    return ev_out, keep2.sum()
+
+
+def _combine(back: torch.Tensor, slot, keep, top_w, t: int, k: int) -> torch.Tensor:
+    """Phase 5 of one cell: each token's ``k`` weighted results summed in
+    rank order, as :func:`moe_local` sums them."""
+    gathered = back[slot.clamp_min(0).long()] * keep[:, None].to(back.dtype)
+    terms = (gathered * top_w.reshape(-1)[:, None].to(back.dtype)).reshape(t, k, -1)
+    y = terms[:, 0]
+    for j in range(1, k):
+        y = y + terms[:, j]
+    return y
+
+
+def moe_sharded(params: dict, x: dict, cfg, mesh, axis="model", owned: dict | None = None):
+    """Expert-parallel dispatch over ``mesh``, every cell at once.
+
+    ``params[cell]`` holds (as attributes, like :class:`MoE`) the cell's
+    router and router bias (whole) and its slab of the experts (``[E / tp,
+    ...]``: experts ``[r * E / tp, (r + 1) * E / tp)`` for the cell of rank
+    ``r`` along ``axis``, a mesh axis or a tuple: ``("data", "model")`` is
+    EP over both); ``x[cell]`` its tokens
+    ``[t, D]``; ``owned[cell]`` (optional, bool ``[t]``) the tokens the cell
+    dispatches, when tokens are replicated over part of the EP axes. Runs
+    ``repro``'s ``moe_sharded`` in five bulk-synchronous phases: every cell
+    routes and packs its send buffers; ``all_to_all`` over each EP group;
+    every cell dispatches what it received by tag and runs its experts;
+    ``all_to_all`` back; every cell combines its tokens' results. Returns
+    ``({cell: y [t, D]}, {cell: {"load": [E], "dispatched": events that
+    reached an expert slot}})``.
+    """
+    tp = mesh.axes_size(axis)
+    e, k = cfg.n_experts, cfg.top_k
+    e_local = e // tp
+    t = next(iter(x.values())).shape[0]
+    cap_send = max(8, int(t * k / tp * cfg.capacity_factor))
+    cap_recv = max(8, int(t * k / e_local * cfg.capacity_factor))
+    payload, tags, sends, loads = {}, {}, {}, {}
+    for cell in mesh.cells():
+        payload[cell], tags[cell], sends[cell], loads[cell] = _pack(
+            params[cell], x[cell], cfg, tp, cap_send, None if owned is None else owned[cell])
+    recv_x = _exchange(mesh, axis, payload)
+    recv_tag = _exchange(mesh, axis, tags)
+    ev_out, dispatched = {}, {}
+    for cell in mesh.cells():
+        d = x[cell].shape[1]
+        out, dispatched[cell] = _expert_pass(params[cell], recv_x[cell].reshape(tp * cap_send, d),
+                                             recv_tag[cell].reshape(tp * cap_send), e_local,
+                                             cap_recv)
+        ev_out[cell] = out.reshape(tp, cap_send, d)
+    back = _exchange(mesh, axis, ev_out)
+    y = {cell: _combine(back[cell].reshape(tp * cap_send, -1), *sends[cell], t, k)
+         for cell in mesh.cells()}
+    return y, {cell: {"load": loads[cell], "dispatched": dispatched[cell]}
+               for cell in mesh.cells()}
+
+
+def _exchange(mesh, axis, parts: dict) -> dict:
+    """``all_to_all`` of every cell's ``[tp, ...]`` buffer over its EP group
+    (split and joined on dim 0, untiled): row ``i`` of what a cell receives
+    is what the group's cell ``i`` packed for it."""
+    out = {}
+    for group in mesh.groups(axis):
+        for cell, got in zip(group, mesh_mod.all_to_all([parts[c] for c in group], 0, 0)):
+            out[cell] = got
+    return out
+
+
+def ep_axes_for(cfg, mesh, model_axis: str = "model") -> tuple[str, ...]:
+    """The EP mesh axes: the resolution rule of the expert weights
+    (``distributed.sharding.RULES["experts"]``), so dispatch matches
+    storage; ``()`` when no candidate divides the experts."""
+    for cand in (("data", model_axis), (model_axis,), ("data",)):
+        if all(a in mesh.shape for a in cand):
+            size = math.prod(mesh.shape[a] for a in cand)
+            if size > 1 and cfg.n_experts % size == 0:
+                return cand
+    return ()
+
+
+def moe_block_sharded(params: MoE, x3: torch.Tensor, cfg, mesh, model_axis: str = "model"):
+    """x3: [B, S, D] (global) -> ([B, S, D], {"load": [E], "dispatched"}).
+
+    ``repro``'s ``moe_block_sharded``. The activation layout adapts to the
+    shape: tokens split over the batch axes that divide B and, when S
+    divides the model axis (train, prefill), the sequence over ``model``, so
+    every cell dispatches a distinct slab; otherwise (decode) tokens are
+    replicated over the EP axes the activations leave free, each replica
+    dispatches its strided ``owned`` share and the outputs are summed over
+    those axes. ``load`` is every cell's emitted count summed and divided by
+    the number of identical replicas (mesh axes neither EP nor used by the
+    activations): bit-equal to ``repro``'s. Expert weights are cut ``P(ep)``
+    (views when the mesh's devices are the weights'); the router and its
+    bias are whole on every cell. The EP exchange never crosses the pod
+    axis. A mesh with no EP axis dispatches with :func:`moe_local`."""
+    ep = ep_axes_for(cfg, mesh, model_axis)
+    b, s, d = x3.shape
+    if not ep:  # a tiny config or a one-cell mesh: local dispatch
+        y, aux = moe_local(params, x3.reshape(b * s, d), cfg)
+        return y.reshape(b, s, d), aux
+    s_shardable = s % mesh.shape[model_axis] == 0 and s > 1
+    # batch sharding: as many of (pod, data) as divide B
+    b_axes = [a for a in ("pod", "data") if a in mesh.shape]
+    while b_axes and b % mesh.axes_size(b_axes) != 0:
+        b_axes.pop(0)
+    b_entry = tuple(b_axes) if b_axes else None
+    if s_shardable:
+        act_used = set(b_axes) | {model_axis}
+        in_x = mesh_mod.P(b_entry, model_axis, None)
+    else:
+        act_used = set(b_axes)
+        in_x = mesh_mod.P(b_entry, None, None)
+    rep_axes = tuple(a for a in ep if a not in act_used)
+    # non-EP axes over which tokens are replicated run identical dispatches
+    # (data-parallel replicas): their multiplicity is divided out of the load
+    dup = math.prod(mesh.shape[a] for a in mesh.axis_names if a not in ep and a not in act_used)
+
+    x_sharding = mesh_mod.NamedSharding(mesh, in_x)
+    slabs = x_sharding.shard(x3)
+    xs = {cell: slab.reshape(-1, d) for cell, slab in slabs.items()}
+    experts = {name: mesh_mod.NamedSharding(mesh, mesh_mod.P(ep)).shard(getattr(params, name))
+               for name in EXPERT_PARAMS}
+    cell_params = {cell: SimpleNamespace(
+        router=params.router.to(mesh.device(cell)),
+        router_bias=params.router_bias.to(mesh.device(cell)),
+        **{name: experts[name][cell] for name in EXPERT_PARAMS}) for cell in mesh.cells()}
+    owned = None
+    if rep_axes:
+        n_rep = mesh.axes_size(rep_axes)
+        owned = {cell: torch.arange(xx.shape[0], device=xx.device) % n_rep
+                 == mesh.index(cell, rep_axes) for cell, xx in xs.items()}
+    ys, auxes = moe_sharded(cell_params, xs, cfg, mesh, axis=ep, owned=owned)
+    if rep_axes:
+        for group in mesh.groups(rep_axes):
+            for cell, total in zip(group, mesh_mod.psum([ys[c] for c in group])):
+                ys[cell] = total
+    cells = mesh.cells()
+    # the exact global load: every cell's emitted counts, de-duplicated
+    load = mesh_mod.psum([auxes[c]["load"] for c in cells])[0] / dup
+    dispatched = mesh_mod.psum([auxes[c]["dispatched"].float() for c in cells])[0] / dup
+    y = x_sharding.unshard({c: ys[c].reshape(slabs[c].shape) for c in cells}, x3.device)
+    return y, {"load": load.to(x3.device), "dispatched": dispatched.to(x3.device)}

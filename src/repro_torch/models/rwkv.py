@@ -29,7 +29,27 @@ from repro_torch.models.layers import RMSNorm, matmul, normal_param, rmsnorm, si
 
 __all__ = [
     "RWKV6", "init_state", "rwkv6_chunked_core", "rwkv6_layer", "rwkv6_sequential_core",
+    "rwkv6_spec",
 ]
+
+
+def rwkv6_spec(cfg) -> dict:
+    return {
+        "mu": (None, "embed"),
+        "mu0": ("embed",),
+        "mix_a": ("embed", None),
+        "mix_b": (None, None, "embed"),
+        "wr": ("embed", "heads_flat"),
+        "wk": ("embed", "heads_flat"),
+        "wv": ("embed", "heads_flat"),
+        "wg": ("embed", "heads_flat"),
+        "wo": ("heads_flat", "embed"),
+        "w_base": ("heads_flat",),
+        "w_a": ("embed", None),
+        "w_b": (None, "heads_flat"),
+        "u_bonus": ("heads", None),
+        "ln_out": {"scale": ("embed",)},
+    }
 
 
 # ---------------------------------------------------------------------------

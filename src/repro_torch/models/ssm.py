@@ -28,8 +28,21 @@ from repro_torch.models.layers import RMSNorm, matmul, normal_param, rmsnorm, si
 
 __all__ = [
     "Mamba2", "init_mamba2_state", "mamba2_chunked_core", "mamba2_layer",
-    "mamba2_sequential_core",
+    "mamba2_sequential_core", "mamba2_spec",
 ]
+
+
+def mamba2_spec(cfg) -> dict:
+    return {
+        "in_proj": ("embed", "inner"),
+        "conv_w": (None, "inner"),
+        "conv_b": ("inner",),
+        "a_log": ("ssm_heads",),
+        "d_skip": ("ssm_heads",),
+        "dt_bias": ("ssm_heads",),
+        "norm": {"scale": ("inner",)},
+        "out_proj": ("inner", "embed"),
+    }
 
 
 class Mamba2(nn.Module):

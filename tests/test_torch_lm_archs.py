@@ -30,6 +30,7 @@ from repro.serve.engine import Engine as JEngine
 from repro.serve.engine import ServeConfig as JServeConfig
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.convert import lm_params_from_numpy
+from repro_torch.distributed.mesh import make_mesh
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models.model import build_model
 from repro_torch.serve.engine import Engine, ServeConfig
@@ -256,12 +257,19 @@ def test_full_and_smoke_configs_build(arch):
 
 
 def test_unported_parts_raise_lm_remainder():
-    """What the LM remainder still leaves out: the expert-parallel MoE
-    (``moe_impl="sharded"``). Training is ported (tests/test_torch_train*.py)."""
+    """Nothing of the LM remainder is refused any more: the expert-parallel
+    MoE (``moe_impl="sharded"``) builds over a mesh
+    (tests/test_torch_expert_parallel.py holds it to repro), and only a
+    sharded build without a mesh, or an unknown ``moe_impl``, is refused."""
     assert None not in ARCHS.values()
     cfg = get_config("deepseek-moe-16b", smoke=True)
-    with pytest.raises(NotImplementedError, match="LM remainder"):
+    mesh = make_mesh((2, 2), devices=["cpu"] * 4)
+    model = build_model(cfg, device="cpu", moe_impl="sharded", mesh=mesh)
+    assert all(block.moe_impl == "sharded" and block.mesh is mesh for block in model.stack)
+    with pytest.raises(ValueError, match="needs a mesh"):
         build_model(cfg, device="cpu", moe_impl="sharded")
+    with pytest.raises(ValueError, match="moe_impl"):
+        build_model(cfg, device="cpu", moe_impl="ring")
 
 
 def test_serve_cli_defaults_to_gemma3_and_feeds_whisper_zero_frames(capsys):

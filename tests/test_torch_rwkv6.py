@@ -39,6 +39,7 @@ from repro.serve.engine import ServeConfig as JServeConfig
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.convert import lm_params_from_numpy
+from repro_torch.distributed.mesh import make_mesh
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import rwkv
@@ -373,10 +374,12 @@ def test_build_model_refuses_what_is_not_ported_and_needs_a_device():
         dataclasses.replace(cfg, mtp_depth=1),
     ):
         assert len(build_model(ported, device="cpu").stack) == ported.n_layers
-    # still refused: the expert-parallel MoE
-    with pytest.raises(NotImplementedError, match="LM remainder"):
-        build_model(dataclasses.replace(cfg, period=(BlockSpec(kind="rwkv6", ffn="moe"),), **moe),
-                    device="cpu", moe_impl="sharded")
+    # the expert-parallel MoE builds over a mesh, and is refused without one
+    sharded = dataclasses.replace(cfg, period=(BlockSpec(kind="rwkv6", ffn="moe"),), **moe)
+    assert len(build_model(sharded, device="cpu", moe_impl="sharded",
+                           mesh=make_mesh((1, 2), devices=["cpu"] * 2)).stack) == sharded.n_layers
+    with pytest.raises(ValueError, match="needs a mesh"):
+        build_model(sharded, device="cpu", moe_impl="sharded")
     if torch.cuda.is_available():
         assert build_model(cfg).device.type == "cuda"
     else:

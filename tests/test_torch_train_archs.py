@@ -94,6 +94,16 @@ def tree_get(tree, key):
 
 
 def test_repro_run_carried_into_the_port_continues_as_repro():
+    """Two q8 steps of repro carried into the port, and a third step on both:
+    loss and gradient norm within 1e-4, router biases within 1e-9, the q8
+    codes within +-1. No other parameter is compared, because of how q8
+    moments update: ``_q8_encode`` scales a block of 256 by its largest
+    |x| / 127, so an element with 0.004 G < |g| < 0.063 G (G the block's
+    largest) decodes a nonzero ``m`` while its ``v`` rounds to code 0, and
+    AdamW's update ``m_hat / (sqrt(v_hat) + eps)`` then divides by eps =
+    1e-8. One code of difference in ``m`` between the packages (the codes
+    are held within +-1) then moves such a parameter differently, by about
+    lr * scale / eps (ROADMAP.md §3: a defect of repro that the port keeps)."""
     # the dense prefix layer and one MoE period: half deepseek-v3's compile
     cfg_j, jm, jparams, cfg, model = build_pair("deepseek-moe-16b", n_periods=1)
     opt = dict(lr=1e-2, warmup_steps=1, total_steps=10, state_dtype="q8")
