@@ -220,6 +220,25 @@ Phases, each of which fails the run on any error:
      bit-equal. 8d: ``hierarchical_all_reduce`` against ``flat_all_reduce``
      over a (2, 4) ("pod", "data") mesh, 64 MB of float32 per cell: the
      largest difference (1e-6 of the largest sum) and the ms of each.
+  9. the dry run (``launch/dryrun.py``), with the launch counts set to 0
+     just before it and read just after (its only kernel is
+     ``rwkv6_chunk``, 256 per rwkv6-3b prefill of 9a). 9a: one step counted
+     by ``launch.costs.CostCounter`` on ``cuda:0`` and on the meta device
+     must give equal FLOPs by dtype, bytes by class and collective bytes by
+     kind: gemma3-1b whole, a float32-moment train step at 8 x 512;
+     rwkv6-3b whole, an 8 x 512 prefill on the kernel (its reckoning
+     counted); deepseek-moe-16b whole with ``moe_impl="sharded"`` on the
+     (2, 4) mesh of ``cuda:0``, an 8 x 512 prefill. Each step is then timed
+     without the counter (CUDA events, and the host clock after
+     synchronize), beside the dry run's bound (the larger of its compute
+     and memory seconds at the H100 data-sheet peaks) and the card's name
+     and power limit. 9b: gemma3-1b's one-cell train state: the reckoned
+     argument bytes equal the card's tensors and the growth of the
+     allocator's requested bytes; the temp estimate against
+     ``max_memory_allocated()`` over the step, as a ratio. 9c: the meta dry
+     run of every arch's decode_32k on (16, 16) and of gemma3-1b's and
+     deepseek-v3-671b's train_4k on (2, 16, 16), a line per cell;
+     ``build/chip_smoke/chip_smoke_dryrun.json``.
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` from the serving
 and LM paths, ``launches_compiler_phase`` from phase 3b,
@@ -229,6 +248,7 @@ phase 3d, ``launches_multidevice_phase`` from phase 3e,
 ``launches_lm_remainder_phase`` from phase 6 (0),
 ``launches_train_phase`` from phase 7 (0),
 ``launches_expert_parallel_phase`` from phase 8 (0),
+``launches_dryrun_phase`` from phase 9 (``rwkv6_chunk`` only),
 ``device_ms_two_table_v`` / ``device_ms_table_v_plus_k512`` from phase 3d's
 part 6), then as the last line
 ``{"ok": true, "device": {...}}``. TF32 is off throughout (the plain stage 2
@@ -261,7 +281,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
-from repro_torch.configs import ARCHS, get_config  # noqa: E402
+from repro_torch.configs import ARCHS, SHAPES, Shape, get_config  # noqa: E402
 from repro_torch.core.cnn import compile_poker_cnn, poker_neuron_params  # noqa: E402
 from repro_torch.core.compiler import (  # noqa: E402
     CompiledArtifact,
@@ -305,6 +325,7 @@ from repro_torch.kernels.rwkv6 import ops as rwkv_ops  # noqa: E402
 from repro_torch.models import attention as attn_ops  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
 from repro_torch.models import moe as moe_ops  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.models import model as lm_model  # noqa: E402
 from repro_torch.models import ssm as ssm_ops  # noqa: E402
@@ -4506,13 +4527,202 @@ def phase_expert_parallel(dev) -> dict[str, int]:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the dry run (launch/dryrun.py) checked against the card
+# ---------------------------------------------------------------------------
+DRY_CASES = (  # 9a: (what, arch, shape, mesh shape); the step counted on cuda:0 and meta
+    ("gemma3-1b train", "gemma3-1b", Shape("train_512", 512, 8, "train"), (1, 1)),
+    ("rwkv6-3b prefill", "rwkv6-3b", Shape("prefill_512", 512, 8, "prefill"), (1, 1)),
+    ("deepseek-moe-16b sharded prefill", "deepseek-moe-16b",
+     Shape("prefill_512", 512, 8, "prefill"), EP_MESH[0]),
+)
+DRY_SWEEP = ([(arch, "decode_32k", False) for arch in ARCHS]  # 9c: meta cells
+             + [("gemma3-1b", "train_4k", True), ("deepseek-v3-671b", "train_4k", True)])
+
+
+def _step_bound_ms(summary: dict) -> tuple[float, float]:
+    """(compute, memory) ms of the counted work against the data-sheet peaks
+    the dry run uses; all of it on one card."""
+    compute = sum(f / dryrun.PEAK_FLOPS.get(k, dryrun.PEAK_FLOPS["float32"])
+                  for k, f in summary["flops"].items())
+    return compute * 1e3, sum(summary["bytes"].values()) / dryrun.HBM_BW * 1e3
+
+
+def _time_step(cell, repeats: int = 3) -> dict:
+    """The cell's step without the counter: CUDA-event ms and host ms after
+    synchronize, the median of ``repeats`` (the counted run warmed it up)."""
+    dev_ms, host_ms = [], []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = cell.step()
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(start.elapsed_time(end))
+        del out
+    return {"event_ms": statistics.median(dev_ms), "host_ms": statistics.median(host_ms),
+            "event_ms_samples": dev_ms}
+
+
+def check_dry_counts(dev, smi: str) -> dict:
+    """9a: each case's step counted on the meta device (the dry run) and on
+    the card must give the same FLOPs by dtype, bytes by class and
+    collective bytes by kind; then the card's step timed without the
+    counter, beside the dry run's bound (the larger of compute and memory)."""
+    out = {}
+    opt = train_opt.OptConfig(state_dtype="float32")
+    for what, arch, shape, mesh_shape in DRY_CASES:
+        cfg = get_config(arch)
+        n = math.prod(mesh_shape)
+        t0 = time.perf_counter()
+        meta_mesh = make_mesh(mesh_shape, EP_MESH[1], devices=["meta"] * n)
+        meta = dryrun.count(dryrun.build_cell(cfg, shape, meta_mesh, opt)).summary()
+        meta_s = time.perf_counter() - t0
+        cell = dryrun.build_cell(cfg, shape, make_mesh(mesh_shape, EP_MESH[1],
+                                                      devices=_cells_of(dev, mesh_shape)), opt)
+        t1 = time.perf_counter()
+        before = _read_counts()
+        card = dryrun.count(cell).summary()
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        launched = {k: v - before[k] for k, v in _read_counts().items()}
+        if card != meta:
+            raise AssertionError(f"9a {what}: the card counted {card}, the meta device {meta}")
+        timing = _time_step(cell)
+        compute_ms, memory_ms = _step_bound_ms(meta)
+        bound_ms = max(compute_ms, memory_ms)
+        out[what] = {"counts": meta, "meta_seconds": meta_s, "counted_card_seconds": card_s,
+                     "launches_in_counted_step": launched, **timing,
+                     "bound_compute_ms": compute_ms, "bound_memory_ms": memory_ms,
+                     "bound_ms": bound_ms, "share_of_bound": bound_ms / timing["event_ms"],
+                     "card": smi}
+        flops = sum(meta["flops"].values())
+        log(f"9a {what}: card and meta counts equal ({flops / 1e12:.3f} TFLOP "
+            f"{ {k: f'{v / 1e12:.3f}' for k, v in meta['flops'].items()} }, "
+            f"{sum(meta['bytes'].values()) / 1e9:.2f} GB "
+            f"{ {k: f'{v / 1e9:.2f}' for k, v in meta['bytes'].items()} }, collectives "
+            f"{meta['collective']['total'] / 1e6:.2f} MB); step {timing['event_ms']:.1f} ms "
+            f"(host {timing['host_ms']:.1f}), bound {bound_ms:.2f} ms "
+            f"(compute {compute_ms:.2f}, memory {memory_ms:.2f}): share "
+            f"{bound_ms / timing['event_ms']:.4f}; {smi}; meta {meta_s:.1f} s, counted "
+            f"card step {card_s:.1f} s, kernels {launched}")
+        del cell
+        _free()
+    return out
+
+
+def _requested() -> int:
+    """The bytes the caching allocator has been asked for and holds (exact;
+    ``memory_allocated`` counts its rounded blocks and whole segments)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def check_dry_memory(dev) -> dict:
+    """9b: gemma3-1b's one-cell train state, 8 x 512, float32 moments: the
+    dry run's argument bytes equal the card's tensors' bytes and the growth
+    of the allocator's requested bytes as they are placed (the growth of
+    ``memory_allocated()``, in the allocator's blocks, beside it). The temp
+    estimate against ``max_memory_allocated()`` over the step."""
+    _free()
+    cfg = get_config("gemma3-1b")
+    shape = DRY_CASES[0][2]
+    opt = train_opt.OptConfig(state_dtype="float32")
+    rec = dryrun.run_cell("gemma3-1b", shape, False, opt_cfg=opt, save=False, cfg=cfg,
+                          mesh=make_mesh((1, 1), EP_MESH[1], devices=["meta"]))
+    reckoned = rec["memory"]["argument_size_in_bytes"]
+    base, base_requested = torch.cuda.memory_allocated(), _requested()
+    cell = dryrun.build_cell(cfg, shape, make_mesh((1, 1), EP_MESH[1],
+                                                  devices=_cells_of(dev, (1, 1))), opt)
+    grown, requested = torch.cuda.memory_allocated() - base, _requested() - base_requested
+    tensors = _leaves(cell.args)
+    exact = sum(t.numel() * t.element_size() for t in tensors)
+    if not reckoned == exact == requested:
+        raise AssertionError(f"9b: reckoned {reckoned} argument bytes, the card's tensors hold "
+                             f"{exact}, the allocator's requested bytes grew {requested}")
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    out = cell.step()
+    torch.cuda.synchronize()
+    temp = torch.cuda.max_memory_allocated() - at_start
+    del out, cell
+    _free()
+    ratio = rec["memory"]["temp_size_in_bytes"] / temp
+    log(f"9b gemma3-1b one-cell train state: argument bytes reckoned {reckoned} = the card's "
+        f"{len(tensors)} tensors = the allocator's requested growth ({grown} in its blocks, "
+        f"memory_allocated); temp estimate {rec['memory']['temp_size_in_bytes'] / 1e9:.2f} GB "
+        f"against {temp / 1e9:.2f} GB peak over the step (ratio {ratio:.3f})")
+    return {"argument_size_in_bytes": reckoned, "requested_growth_bytes": requested,
+            "allocated_growth_bytes": grown, "tensors": len(tensors),
+            "temp_estimate_bytes": rec["memory"]["temp_size_in_bytes"],
+            "step_peak_over_arguments_bytes": temp, "temp_ratio": ratio, "record": rec}
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    out = []
+    tree_map(lambda t: out.append(t) if isinstance(t, torch.Tensor) else None, tree)
+    return out
+
+
+def check_dry_sweep() -> dict:
+    """9c: the meta dry run of every arch's decode_32k on (16, 16) and
+    gemma3-1b's and deepseek-v3-671b's train_4k on (2, 16, 16)."""
+    shapes = {s.name: s for s in SHAPES}
+    out = {}
+    for arch, shape, multi in DRY_SWEEP:
+        r = dryrun.run_cell(arch, shapes[shape], multi, save=False)
+        rf, mem = r["roofline"], r["memory"]
+        out[f"{arch}__{shape}__{r['mesh']}"] = r
+        log(f"9c {arch} x {shape} x {r['mesh']} ({r['n_chips']} cells): {r['seconds']:.1f} s; "
+            f"per device {r['cost']['flops_per_device'] / 1e12:.3f} TFLOP, "
+            f"{r['cost']['bytes_per_device'] / 1e9:.3f} GB, collectives "
+            f"{r['collective_bytes_per_device']['total'] / 1e6:.2f} MB; arguments "
+            f"{mem['argument_size_in_bytes'] / 1e9:.2f} GB, temp "
+            f"{mem['temp_size_in_bytes'] / 1e9:.2f} GB; compute {rf['compute_s'] * 1e3:.3f} ms, "
+            f"memory {rf['memory_s'] * 1e3:.3f} ms, collective {rf['collective_s'] * 1e3:.3f} ms "
+            f"({rf['dominant']}; H100 data-sheet peaks)")
+    return out
+
+
+def phase_dryrun(dev, smi: str) -> dict[str, int]:
+    """Phase 9: the launch counts set to 0 just before and read just after.
+    Its only kernel is ``rwkv6_chunk``, in 9a's rwkv6-3b prefills (256 per
+    prefill: once counted, then the timed ones); no other kernel lies on
+    these paths."""
+    t0 = time.perf_counter()
+    _reset_counts()
+    out = {"card": smi}
+    for name, fn in (("9a_counts", lambda: check_dry_counts(dev, smi)),
+                     ("9b_memory", lambda: check_dry_memory(dev)),
+                     ("9c_sweep", check_dry_sweep)):
+        t1 = time.perf_counter()
+        out[name] = fn()
+        out[name + "_seconds"] = time.perf_counter() - t1
+    counts = _read_counts()
+    per_prefill = get_config("rwkv6-3b").n_periods * len(get_config("rwkv6-3b").period) * (
+        -(-DRY_CASES[1][2].seq_len // get_config("rwkv6-3b").ssm_chunk))
+    if counts["rwkv6_chunk"] % per_prefill or counts["rwkv6_chunk"] == 0 or any(
+            v for k, v in counts.items() if k != "rwkv6_chunk"):
+        raise AssertionError(f"dry-run phase launched {counts} ({per_prefill} per prefill)")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "chip_smoke_dryrun.json").write_text(json.dumps(out, indent=1))
+    log(f"dry-run phase: {out['seconds']:.1f} s (" + ", ".join(
+        f"{k.removesuffix('_seconds')} {v:.1f}" for k, v in out.items()
+        if k.endswith("_seconds")) + f"), launches {counts}")
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs on the GPU only")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    phase_card_and_build()
+    smi = phase_card_and_build()
     kernels = phase_kernels(dev)
     launches, v1 = phase_serving(dev)
     compiler_launches = phase_compiler(dev, v1)
@@ -4524,6 +4734,7 @@ def main() -> None:
     lm_remainder_launches = phase_lm_remainder(dev)
     train_launches = phase_train(dev)
     expert_parallel_launches = phase_expert_parallel(dev)
+    dryrun_launches = phase_dryrun(dev, smi)
     if set(launches) != set(kernels):
         raise AssertionError(f"serving legs launched {sorted(launches)}, kernels {sorted(kernels)}")
     for name, n in launches.items():
@@ -4538,6 +4749,7 @@ def main() -> None:
         kernels[name]["launches_lm_remainder_phase"] = lm_remainder_launches.get(name, 0)
         kernels[name]["launches_train_phase"] = train_launches.get(name, 0)
         kernels[name]["launches_expert_parallel_phase"] = expert_parallel_launches.get(name, 0)
+        kernels[name]["launches_dryrun_phase"] = dryrun_launches.get(name, 0)
         for shape, at in mm_kernels.items():
             if name in at:
                 kernels[name][f"device_ms_{shape}"] = at[name]["device_ms"]

@@ -41,7 +41,9 @@ import math
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from repro_torch.core import cost_hook
 from repro_torch.core.device import resolve_device
 
 __all__ = [
@@ -164,8 +166,93 @@ class DeviceMesh:
             out.append(group)
         return out
 
+    @property
+    def on_meta(self) -> bool:
+        """Every cell is the meta device. Values are shapes alone there, the
+        same for every cell of a sharded value: a per-cell dict holds one
+        tensor for all cells, and the primitives below compute each result
+        once (and report every cell's collective payload)."""
+        return all(d.type == "meta" for d in self.devices.flat)
+
+    def map_cells(self, fn, args: dict) -> dict:
+        """``{cell: fn(*args[cell])}`` over every cell, in turn. On a mesh of
+        the meta device every cell does the same work on shapes alone: the
+        first cell's call runs once and stands for every cell, counted once
+        per cell by a ``launch.costs.CostCounter`` in the forward and the
+        backward, and every cell's inputs take its gradients (a mesh of 512
+        cells dry-runs in about the time of one)."""
+        cells = self.cells()
+        if not self.on_meta:
+            return {cell: fn(*args[cell]) for cell in cells}
+        got = _for_every_cell(fn, [args[cell] for cell in cells])
+        return dict.fromkeys(cells, got)
+
     def __repr__(self) -> str:
         return f"DeviceMesh({self.shape}, {[str(d) for d in self.devices.flat]})"
+
+
+def _for_every_cell(fn, cell_args: list[tuple]):
+    """The first cell's ``fn(*args)``, standing for every cell's (see
+    :meth:`DeviceMesh.map_cells`)."""
+    leaves, spec = tree_flatten(cell_args[0])
+    slots = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
+    inputs = [leaves[i] for i in slots]
+    # another cell's tensors join the inputs (and take the first cell's
+    # gradients) where they are not the first cell's own
+    for a in cell_args[1:]:
+        theirs = [tree_flatten(a)[0][i] for i in slots]
+        if any(t is not mine for t, mine in zip(theirs, inputs[:len(slots)])):
+            inputs += theirs
+    out_spec = []
+
+    def run(*ts):
+        vals = list(leaves)
+        for i, t in zip(slots, ts):
+            vals[i] = t
+        outs, o_spec = tree_flatten(fn(*tree_unflatten(vals, spec)))
+        out_spec[:] = [o_spec]
+        return tuple(outs)
+
+    if _differentiable(inputs):
+        outs = _ForEveryCell.apply(run, len(cell_args), len(slots), *inputs)
+    else:
+        with cost_hook.scaled(len(cell_args)):
+            outs = run(*inputs[:len(slots)])
+    return tree_unflatten(list(outs), out_spec[0])
+
+
+class _ForEveryCell(torch.autograd.Function):
+    """The first cell's work counted for ``n`` cells, forward and backward;
+    ``inputs`` holds the first cell's ``k`` tensors, then those of each cell
+    that has tensors of its own. The forward
+    keeps no graph; the backward rebuilds it uncounted, counts its gradient
+    ``n`` times and hands every cell's inputs the first cell's gradients."""
+
+    @staticmethod
+    def forward(ctx, run, n, k, *inputs):
+        ctx.run, ctx.n, ctx.k = run, n, k
+        ctx.save_for_backward(*inputs[:k])
+        with cost_hook.scaled(n):
+            return run(*inputs[:k])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        k = ctx.k
+        groups = (len(ctx.needs_input_grad) - 3) // k
+        need = [any(ctx.needs_input_grad[3 + c * k + i] for c in range(groups)) for i in range(k)]
+        inputs = [x.detach().requires_grad_(w) for x, w in zip(ctx.saved_tensors, need)]
+        with cost_hook.suspended(), torch.enable_grad():
+            outs = ctx.run(*inputs)
+        pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+        wanted = [x for x in inputs if x.requires_grad]
+        first = [None] * k
+        if pairs and wanted:
+            with cost_hook.scaled(ctx.n):
+                got = iter(torch.autograd.grad([o for o, _ in pairs], wanted,
+                                               [g for _, g in pairs], allow_unused=True))
+            first = [next(got) if x.requires_grad else None for x in inputs]
+        return (None, None, None, *(first[j % k] if ctx.needs_input_grad[3 + j] else None
+                                    for j in range(groups * k)))
 
 
 def make_mesh(shape, axis_names: tuple[str, ...] = AXES, devices=None,
@@ -230,15 +317,34 @@ class NamedSharding:
 
     def shard(self, x: torch.Tensor) -> dict[tuple[int, ...], torch.Tensor]:
         """Every cell's slab on the cell's device: a view where that is
-        ``x``'s device, else a copy."""
+        ``x``'s device, else a copy. Its transpose sums the gradients of a
+        slab's replicas (the cells that differ only on axes the spec leaves
+        out) with :func:`psum`."""
         self.check(x.shape)
+        cells = self.mesh.cells()
+        if self.mesh.on_meta:
+            slab = _MetaShard.apply(self, x) if _differentiable([x]) else self.slab(x, cells[0])
+            return dict.fromkeys(cells, slab)
+        if _differentiable([x]):
+            return dict(zip(cells, _Shard.apply(self, x)))
         return {cell: self.slab(x, cell).to(self.mesh.device(cell), non_blocking=True)
-                for cell in self.mesh.cells()}
+                for cell in cells}
+
+    def replicated_axes(self) -> tuple[str, ...]:
+        """The mesh axes the spec does not cut: a slab's replicas differ on them."""
+        named = {a for _, axes in self._cut() for a in axes}
+        return tuple(a for a in self.mesh.axis_names if a not in named)
 
     def unshard(self, parts: dict, device: torch.device) -> torch.Tensor:
         """The global tensor on ``device`` from the cells' slabs (replicated
         axes read their first cell). One cell's slab comes back as it is."""
         cut = self._cut()
+        first = next(iter(parts.values()))
+        if self.mesh.on_meta and all(p is first for p in parts.values()):
+            reps = [1] * first.dim()
+            for dim, axes in cut:
+                reps[dim] = self.mesh.axes_size(axes)
+            return first.repeat(*reps).to(device)
 
         def build(fixed: dict[str, int], k: int) -> torch.Tensor:
             if k == len(cut):
@@ -258,6 +364,54 @@ class NamedSharding:
         t = torch.as_tensor(x)
         self.check(t.shape)
         return t.to(self.mesh.home)
+
+
+class _Shard(torch.autograd.Function):
+    """:meth:`NamedSharding.shard`, whose transpose is a :func:`psum` of
+    each slab's gradients over its replicas, into the global gradient."""
+
+    @staticmethod
+    def forward(ctx, sharding, x):
+        ctx.sharding = sharding
+        ctx.set_materialize_grads(False)
+        return _distinct([sharding.slab(x, cell).to(sharding.mesh.device(cell), non_blocking=True)
+                          for cell in sharding.mesh.cells()])
+
+    @staticmethod
+    def backward(ctx, *grads):
+        sh = ctx.sharding
+        if all(g is None for g in grads):
+            return None, None
+        like = next(g for g in grads if g is not None)
+        by_cell = {c: torch.zeros_like(like) if g is None else g
+                   for c, g in zip(sh.mesh.cells(), grads)}
+        summed = {}
+        for group in sh.mesh.groups(sh.replicated_axes()):
+            parts = [by_cell[c] for c in group]
+            total = psum(parts)[0] if len(parts) > 1 else parts[0]
+            summed.update(dict.fromkeys(group, total))
+        return None, sh.unshard(summed, sh.mesh.home)
+
+
+class _MetaShard(torch.autograd.Function):
+    """:meth:`NamedSharding.shard` on a meta mesh: the first cell's slab
+    stands for every cell's, and the transpose reports the :func:`psum` of
+    every cell's gradient over its replicas."""
+
+    @staticmethod
+    def forward(ctx, sharding, x):
+        ctx.sharding = sharding
+        ctx.set_materialize_grads(False)
+        return sharding.slab(x, sharding.mesh.cells()[0]).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return None, None
+        sh = ctx.sharding
+        if sh.mesh.axes_size(sh.replicated_axes()) > 1:
+            _reports("all-reduce", [g] * sh.mesh.size, 2.0)
+        return None, sh.unshard(dict.fromkeys(sh.mesh.cells(), g), g.device)
 
 
 def _is_spec(x) -> bool:
@@ -293,9 +447,131 @@ def named(mesh: DeviceMesh, spec_tree):
     return tree_map(lambda s: NamedSharding(mesh, s), spec_tree, is_leaf=_is_spec)
 
 
+def _reports(kind: str, parts: list[torch.Tensor], factor: float) -> None:
+    """Tell a counting ``launch.costs.CostCounter`` of one collective."""
+    obs = cost_hook.observer
+    if obs is not None:
+        obs.collective(kind, sum(p.numel() * p.element_size() for p in parts), factor)
+
+
+def _differentiable(parts) -> bool:
+    return torch.is_grad_enabled() and any(p.requires_grad for p in parts)
+
+
+def _distinct(outs: list[torch.Tensor]) -> tuple[torch.Tensor, ...]:
+    """``outs`` with a tensor that appears twice cloned: an autograd
+    function hands back one tensor per output."""
+    seen: set[int] = set()
+    got = []
+    for t in outs:
+        got.append(t.clone() if id(t) in seen else t)
+        seen.add(id(t))
+    return tuple(got)
+
+
+def _one_meta_value(parts: list[torch.Tensor]) -> bool:
+    """A meta mesh's per-cell value: one tensor for every cell."""
+    return parts[0].device.type == "meta" and all(p is parts[0] for p in parts)
+
+
+class _MetaCollective(torch.autograd.Function):
+    """A collective over one meta value, computed once: its result passes
+    through, and the backward reports the transpose over the ``n`` cells
+    (an all-reduce's is an all-reduce, an all-to-all's an all-to-all of the
+    same payload). The gradient, one shape for every cell, passes back."""
+
+    @staticmethod
+    def forward(ctx, kind, factor, n, x):
+        ctx.kind, ctx.factor, ctx.n = kind, factor, n
+        ctx.set_materialize_grads(False)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is not None:
+            _reports(ctx.kind, [g] * ctx.n, ctx.factor)
+        return None, None, None, g
+
+
+def _transpose(grads, collective) -> tuple:
+    """A collective's gradients through its transpose; no gradient reaching
+    any output runs (and reports) no transpose, as a symbolic zero in JAX."""
+    if all(g is None for g in grads):
+        return (None,) * len(grads)
+    like = next(g for g in grads if g is not None)
+    return tuple(collective([torch.zeros_like(like) if g is None else g for g in grads]))
+
+
+class _PSum(torch.autograd.Function):
+    """:func:`psum`, whose transpose is :func:`psum` of the gradients."""
+
+    @staticmethod
+    def forward(ctx, *parts):
+        ctx.set_materialize_grads(False)
+        return _distinct(_psum(list(parts)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return _transpose(grads, lambda gs: psum(gs))
+
+
+class _PSumScatter(torch.autograd.Function):
+    """:func:`psum_scatter`, whose transpose is :func:`all_gather`."""
+
+    @staticmethod
+    def forward(ctx, dim, tiled, *parts):
+        ctx.dim, ctx.tiled = dim, tiled
+        ctx.set_materialize_grads(False)
+        return _distinct(_psum_scatter(list(parts), dim, tiled))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *_transpose(grads, lambda gs: all_gather(gs, ctx.dim, ctx.tiled)))
+
+
+class _AllGather(torch.autograd.Function):
+    """:func:`all_gather`, whose transpose is :func:`psum_scatter`."""
+
+    @staticmethod
+    def forward(ctx, dim, tiled, *parts):
+        ctx.dim, ctx.tiled = dim, tiled
+        ctx.set_materialize_grads(False)
+        return _distinct(_all_gather(list(parts), dim, tiled))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *_transpose(grads, lambda gs: psum_scatter(gs, ctx.dim, ctx.tiled)))
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all`, whose transpose is :func:`all_to_all` with the
+    split and concat dims swapped."""
+
+    @staticmethod
+    def forward(ctx, split_dim, concat_dim, tiled, *parts):
+        ctx.dims, ctx.tiled = (split_dim, concat_dim), tiled
+        ctx.set_materialize_grads(False)
+        return _distinct(_all_to_all(list(parts), split_dim, concat_dim, tiled))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        split_dim, concat_dim = ctx.dims
+        return (None, None, None,
+                *_transpose(grads, lambda gs: all_to_all(gs, concat_dim, split_dim, ctx.tiled)))
+
+
 def psum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     """Elementwise sum of the group's tensors, replicated back to every
-    cell's device (one fresh tensor per device)."""
+    cell's device (one fresh tensor per device). Its transpose is itself."""
+    _reports("all-reduce", parts, 2.0)  # a ring moves each byte twice
+    if _one_meta_value(parts):
+        return [_MetaCollective.apply("all-reduce", 2.0, len(parts), parts[0])] * len(parts)
+    if _differentiable(parts):
+        return list(_PSum.apply(*parts))
+    return _psum(parts)
+
+
+def _psum(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     dev = parts[0].device
     total = parts[0]
     for p in parts[1:]:
@@ -307,7 +583,15 @@ def psum_scatter(parts: list[torch.Tensor], dim: int, tiled: bool = True) -> lis
     """Sum the group's partial tensors and hand cell ``j`` the ``j``-th slab
     of the sum along ``dim`` (``tiled=False``: the dim has the group's size
     and is dropped), on its own device. Each slab is summed into a fresh
-    tensor; a group of one hands back its tensor as it is."""
+    tensor; a group of one hands back its tensor as it is. Its transpose is
+    :func:`all_gather`."""
+    _reports("reduce-scatter", parts, 1.0)
+    if _differentiable(parts):
+        return list(_PSumScatter.apply(dim, tiled, *parts))
+    return _psum_scatter(parts, dim, tiled)
+
+
+def _psum_scatter(parts: list[torch.Tensor], dim: int, tiled: bool) -> list[torch.Tensor]:
     n = len(parts)
     dim = dim % parts[0].ndim
     size = parts[0].shape[dim]
@@ -331,7 +615,21 @@ def all_to_all(parts: list[torch.Tensor], split_dim: int, concat_dim: int,
     group's ``n`` slabs along ``split_dim``, and cell ``j`` receives slab
     ``j`` of every source, joined along ``concat_dim`` in source order, on
     its own device. ``tiled=False``: ``split_dim`` has size ``n`` and is
-    dropped, and the sources stack along a new dim at ``concat_dim``."""
+    dropped, and the sources stack along a new dim at ``concat_dim``. Its
+    transpose is itself with the two dims swapped."""
+    _reports("all-to-all", parts, 1.0)
+    if _one_meta_value(parts):
+        got = _all_to_all(parts, split_dim, concat_dim, tiled, first_only=True)[0]
+        return [_MetaCollective.apply("all-to-all", 1.0, len(parts), got)] * len(parts)
+    if _differentiable(parts):
+        return list(_AllToAll.apply(split_dim, concat_dim, tiled, *parts))
+    return _all_to_all(parts, split_dim, concat_dim, tiled)
+
+
+def _all_to_all(parts: list[torch.Tensor], split_dim: int, concat_dim: int,
+                tiled: bool, first_only: bool = False) -> list[torch.Tensor]:
+    """``first_only``: every source is one tensor (a meta mesh's value);
+    only the first destination's result is built."""
     n = len(parts)
     ndim = parts[0].ndim
     split_dim, concat_dim = split_dim % ndim, concat_dim % ndim
@@ -341,26 +639,42 @@ def all_to_all(parts: list[torch.Tensor], split_dim: int, concat_dim: int,
                              f"group's size {n}")
         if split_dim < concat_dim:
             concat_dim += 1
-            parts = [p.unsqueeze(concat_dim) for p in parts]
         elif concat_dim < split_dim:
-            parts = [p.unsqueeze(concat_dim) for p in parts]
             split_dim += 1
+        if split_dim != concat_dim:
+            parts = ([parts[0].unsqueeze(concat_dim)] * n if first_only
+                     else [p.unsqueeze(concat_dim) for p in parts])
     size = parts[0].shape[split_dim]
     if size % n:
         raise ValueError(f"dim {split_dim} of size {size} does not split over {n} cells")
     w = size // n
+    squeeze = not tiled and split_dim != concat_dim
+    if first_only:
+        # the first destination's slab of each (identical) source, n times
+        slab = parts[0].narrow(split_dim, 0, w).unsqueeze(concat_dim)
+        shape = list(slab.shape)
+        shape[concat_dim] = n
+        got = slab.expand(shape).flatten(concat_dim, concat_dim + 1)
+        return [got.squeeze(split_dim) if squeeze else got]
     out = []
     for j, pj in enumerate(parts):
         slabs = [p.narrow(split_dim, j * w, w).to(pj.device, non_blocking=True) for p in parts]
         got = torch.cat(slabs, concat_dim)
-        out.append(got.squeeze(split_dim) if not tiled and split_dim != concat_dim else got)
+        out.append(got.squeeze(split_dim) if squeeze else got)
     return out
 
 
 def all_gather(parts: list[torch.Tensor], dim: int, tiled: bool = False) -> list[torch.Tensor]:
     """Every cell receives the group's tensors in rank order on its own
     device: joined along ``dim`` (``tiled=True``), or stacked along a new
-    dim at ``dim``."""
+    dim at ``dim``. Its transpose is :func:`psum_scatter`."""
+    _reports("all-gather", parts, max(len(parts) - 1, 1))
+    if _differentiable(parts):
+        return list(_AllGather.apply(dim, tiled, *parts))
+    return _all_gather(parts, dim, tiled)
+
+
+def _all_gather(parts: list[torch.Tensor], dim: int, tiled: bool) -> list[torch.Tensor]:
     out = []
     for pj in parts:
         pieces = [p.to(pj.device, non_blocking=True) for p in parts]

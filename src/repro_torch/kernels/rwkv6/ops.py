@@ -5,7 +5,9 @@
 u ``[H, P]``, s0 ``[B, H, P, P]``, all float32, and returns
 ``(y [B, T, H, P], s1 [B, H, P, P])``. CPU tensors go to the plain version
 (:func:`~repro_torch.kernels.rwkv6.ref.rwkv6_chunk_ref`); CUDA tensors launch
-the kernel or raise. The kernel has no backward: with gradients on, CUDA
+the kernel or raise; meta tensors (the dry run) give empty outputs of the
+right shapes. Under a ``launch.costs.CostCounter`` a call counts as
+:func:`chunk_cost` reckons it, whichever of the three runs. The kernel has no backward: with gradients on, CUDA
 inputs that require them raise ``RuntimeError`` rather than come back cut
 from the graph. The four ``[B, T, H, P]`` inputs are read in place: each
 needs its ``[T, H, P]`` part packed, and may have any batch stride (a chunk
@@ -20,15 +22,30 @@ import functools
 
 import torch
 
+from repro_torch.core import cost_hook
 from repro_torch.kernels._build import check_status, library, require
 from repro_torch.kernels.rwkv6.ref import rwkv6_chunk_ref
 
 __all__ = [
-    "MAX_CHUNK", "MAX_HEAD_DIM", "kernel_info", "rwkv6_chunk", "rwkv6_chunk_ref", "shared_bytes",
+    "MAX_CHUNK", "MAX_HEAD_DIM", "chunk_cost", "kernel_info", "rwkv6_chunk", "rwkv6_chunk_ref",
+    "shared_bytes",
 ]
 
 MAX_CHUNK = 64  # T: the kernel's a-matrix and its tiles are sized for at most 64
 MAX_HEAD_DIM = 64  # P
+
+
+def chunk_cost(b: int, t: int, h: int, p: int) -> tuple[dict, int]:
+    """The work of one chunk call, reckoned from its shapes, as
+    ``launch.costs.CostCounter`` counts it whichever version runs: its
+    float32 products as dense matmuls per (batch, head), the a-matrix
+    ``r (decay) k^T`` and ``a v`` over the whole ``T x T`` (the kernel skips
+    the upper triangle) and ``r' s0`` and ``k'^T v``, ``4 T P (T + P)``
+    FLOPs; and its bytes, each input read once and each output written
+    once (four ``[B, T, H, P]`` inputs, ``u``, ``s0``, ``y`` and ``s1``)."""
+    flops = 4 * b * h * t * p * (t + p)
+    n_bytes = 4 * (5 * b * t * h * p + h * p + 2 * b * h * p * p)
+    return {torch.float32: flops}, n_bytes
 
 
 @functools.cache
@@ -102,11 +119,18 @@ def rwkv6_chunk(
     u: torch.Tensor,  # [H, P]
     s0: torch.Tensor,  # [B, H, P, P]
 ) -> tuple[torch.Tensor, torch.Tensor]:  # (y [B, T, H, P], s1 [B, H, P, P])
+    with cost_hook.reckoned("rwkv6_chunk", *chunk_cost(*r.shape)):
+        return _rwkv6_chunk(r, k, v, log_w, u, s0)
+
+
+def _rwkv6_chunk(r, k, v, log_w, u, s0):
     dev = r.device
     if dev.type == "cpu":
         return rwkv6_chunk_ref(r, k, v, log_w, u, s0)
+    if dev.type == "meta":  # shapes only, for the dry run
+        return torch.empty_like(r), torch.empty_like(s0)
     if dev.type != "cuda":
-        raise ValueError(f"rwkv6_chunk runs on CPU or CUDA tensors, got {dev}")
+        raise ValueError(f"rwkv6_chunk runs on CPU, CUDA or meta tensors, got {dev}")
     if torch.is_grad_enabled() and any(x.requires_grad for x in (r, k, v, log_w, u, s0)):
         raise RuntimeError(
             "rwkv6_chunk has no backward (repro's Pallas kernel has none either): its outputs "

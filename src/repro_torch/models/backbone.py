@@ -33,6 +33,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.core import cost_hook
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -265,7 +266,7 @@ class Stack(nn.Module):
         total = None  # every layer's MoE load
         period_loads: list[torch.Tensor | None] = []
 
-        def run(x, lo: int, hi: int):
+        def run(x, lo: int, hi: int, enc_out=enc_out):
             """Layers ``lo`` to ``hi - 1``: (x, their MoE loads summed or None)."""
             load = None
             for i in range(lo, hi):
@@ -277,13 +278,35 @@ class Stack(nn.Module):
                     load = block_aux["moe_load"] if load is None else load + block_aux["moe_load"]
             return x, load
 
+        def run_period(x, lo: int, hi: int, enc_out=enc_out):
+            if remat:
+                return checkpoint(run, x, lo, hi, enc_out, use_reentrant=False)
+            return run(x, lo, hi, enc_out)
+
         groups = [(i, i + 1) for i in range(n_pre)]
         groups += [(n_pre + p * n_p, n_pre + (p + 1) * n_p) for p in range(cfg.n_periods)]
         groups += [(i, i + 1) for i in range(n_pre + cfg.n_periods * n_p, len(self))]
+        # on the meta device (the dry run) the periods are the same shapes
+        # alone: the first stands for every one, as repro's scan body does
+        stand_in = x.device.type == "meta" and cfg.n_periods > 1
         for lo, hi in groups:
             period = n_pre <= lo < n_pre + cfg.n_periods * n_p
-            if period and remat:
-                x, load = checkpoint(run, x, lo, hi, use_reentrant=False)
+            if period and stand_in and lo > n_pre:  # the first period stood in
+                ran = [t for i in range(n_pre, n_pre + n_p) for t in self[i].parameters()]
+                ran_for = [t for i in range(lo, hi) for t in self[i].parameters()]
+                if caches is not None:
+                    new_caches.extend(caches[lo:hi])
+                    ran += [t for c in caches[n_pre:n_pre + n_p] for t in c.values()]
+                    ran_for += [t for c in caches[lo:hi] for t in c.values()]
+                cost_hook.reads_as(ran, ran_for)
+            elif period and stand_in:
+                params = {id(p): p for i in range(lo, hi) for p in self[i].parameters()}
+                x, load = cost_hook.stand_in(lambda x, *enc: run_period(x, lo, hi, *enc),
+                                             cfg.n_periods, [x, *([enc_out] if enc_out is not None
+                                                                  else [])],
+                                             list(params.values()))
+            elif period:
+                x, load = run_period(x, lo, hi)
             else:
                 x, load = run(x, lo, hi)
             if period:

@@ -44,8 +44,13 @@ def normal_param(shape, dtype, scale: float, gen: torch.Generator, device) -> nn
 
 def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` in the promoted dtype of the two, as ``jnp.einsum`` computes a
-    product of float32 and bfloat16 (PyTorch refuses mixed dtypes)."""
+    product of float32 and bfloat16 (PyTorch refuses mixed dtypes). Rows of
+    any batch times one matrix are one GEMM, as XLA's ``dot_general`` is:
+    ``torch.matmul`` would broadcast ``w`` over a strided ``x``'s batch."""
     dtype = torch.promote_types(x.dtype, w.dtype)
+    if w.dim() == 2 and x.dim() > 2:
+        rows = x.reshape(-1, x.shape[-1]).to(dtype)
+        return torch.matmul(rows, w.to(dtype)).reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.to(dtype), w.to(dtype))
 
 

@@ -214,7 +214,8 @@ def _pack(params, x: torch.Tensor, cfg, tp: int, cap_send: int, owned):
     drop = tp * cap_send
     idx = torch.where(keep, slot, drop)
     payload = _scatter_rows(x[token_of], idx, drop).reshape(tp, cap_send, d)
-    tags = _scatter_rows(torch.where(keep, tag, -1), idx, drop, fill=-1).reshape(tp, cap_send)
+    tags = _scatter_rows(torch.where(keep, tag, -1).to(torch.int32), idx, drop,
+                         fill=-1).reshape(tp, cap_send)
     return payload, tags, (slot, keep, top_w), load
 
 
@@ -268,24 +269,37 @@ def moe_sharded(params: dict, x: dict, cfg, mesh, axis="model", owned: dict | No
     t = next(iter(x.values())).shape[0]
     cap_send = max(8, int(t * k / tp * cfg.capacity_factor))
     cap_recv = max(8, int(t * k / e_local * cfg.capacity_factor))
-    payload, tags, sends, loads = {}, {}, {}, {}
-    for cell in mesh.cells():
-        payload[cell], tags[cell], sends[cell], loads[cell] = _pack(
-            params[cell], x[cell], cfg, tp, cap_send, None if owned is None else owned[cell])
-    recv_x = _exchange(mesh, axis, payload)
-    recv_tag = _exchange(mesh, axis, tags)
-    ev_out, dispatched = {}, {}
-    for cell in mesh.cells():
-        d = x[cell].shape[1]
-        out, dispatched[cell] = _expert_pass(params[cell], recv_x[cell].reshape(tp * cap_send, d),
-                                             recv_tag[cell].reshape(tp * cap_send), e_local,
-                                             cap_recv)
-        ev_out[cell] = out.reshape(tp, cap_send, d)
-    back = _exchange(mesh, axis, ev_out)
-    y = {cell: _combine(back[cell].reshape(tp * cap_send, -1), *sends[cell], t, k)
-         for cell in mesh.cells()}
-    return y, {cell: {"load": loads[cell], "dispatched": dispatched[cell]}
-               for cell in mesh.cells()}
+    d = next(iter(x.values())).shape[1]
+    cells = mesh.cells()
+    # each cell's parameters as a dict, so a meta mesh's representative cell
+    # takes (and differentiates) its tensors
+    cp = {c: dict(vars(params[c])) for c in cells}
+    packed = mesh.map_cells(
+        lambda p, xx, own: _pack(SimpleNamespace(**p), xx, cfg, tp, cap_send, own),
+        {c: (cp[c], x[c], None if owned is None else owned[c]) for c in cells})
+    recv_x = _exchange(mesh, axis, {c: packed[c][0] for c in cells})
+    recv_tag = _exchange(mesh, axis, {c: packed[c][1] for c in cells})
+    passed = mesh.map_cells(
+        lambda p, rx, rt: _expert_pass(SimpleNamespace(**p), rx.reshape(tp * cap_send, d),
+                                       rt.reshape(tp * cap_send), e_local, cap_recv),
+        {c: (cp[c], recv_x[c], recv_tag[c]) for c in cells})
+    back = _exchange(mesh, axis, _each({c: passed[c][0] for c in cells},
+                                       lambda o: o.reshape(tp, cap_send, d)))
+    y = mesh.map_cells(lambda b, sends: _combine(b.reshape(tp * cap_send, d), *sends, t, k),
+                       {c: (back[c], packed[c][2]) for c in cells})
+    return y, {c: {"load": packed[c][3], "dispatched": passed[c][1]} for c in cells}
+
+
+def _each(parts: dict, fn) -> dict:
+    """``fn`` of every cell's value, once per distinct tensor (a meta mesh
+    holds one tensor for every cell)."""
+    memo: dict[int, object] = {}
+    out = {}
+    for cell, v in parts.items():
+        if id(v) not in memo:
+            memo[id(v)] = fn(v)
+        out[cell] = memo[id(v)]
+    return out
 
 
 def _exchange(mesh, axis, parts: dict) -> dict:
@@ -350,18 +364,22 @@ def moe_block_sharded(params: MoE, x3: torch.Tensor, cfg, mesh, model_axis: str 
 
     x_sharding = mesh_mod.NamedSharding(mesh, in_x)
     slabs = x_sharding.shard(x3)
-    xs = {cell: slab.reshape(-1, d) for cell, slab in slabs.items()}
+    xs = _each(slabs, lambda slab: slab.reshape(-1, d))
     experts = {name: mesh_mod.NamedSharding(mesh, mesh_mod.P(ep)).shard(getattr(params, name))
                for name in EXPERT_PARAMS}
+    # the router and its bias whole on every cell: their gradients sum over
+    # the mesh, as repro's shard_map sums those of a replicated input
+    whole = {name: mesh_mod.NamedSharding(mesh, mesh_mod.P()).shard(getattr(params, name))
+             for name in ("router", "router_bias")}
     cell_params = {cell: SimpleNamespace(
-        router=params.router.to(mesh.device(cell)),
-        router_bias=params.router_bias.to(mesh.device(cell)),
+        **{name: whole[name][cell] for name in whole},
         **{name: experts[name][cell] for name in EXPERT_PARAMS}) for cell in mesh.cells()}
     owned = None
     if rep_axes:
         n_rep = mesh.axes_size(rep_axes)
-        owned = {cell: torch.arange(xx.shape[0], device=xx.device) % n_rep
-                 == mesh.index(cell, rep_axes) for cell, xx in xs.items()}
+        owned = mesh.map_cells(
+            lambda xx, rank: torch.arange(xx.shape[0], device=xx.device) % n_rep == rank,
+            {cell: (xs[cell], mesh.index(cell, rep_axes)) for cell in mesh.cells()})
     ys, auxes = moe_sharded(cell_params, xs, cfg, mesh, axis=ep, owned=owned)
     if rep_axes:
         for group in mesh.groups(rep_axes):
@@ -370,6 +388,9 @@ def moe_block_sharded(params: MoE, x3: torch.Tensor, cfg, mesh, model_axis: str 
     cells = mesh.cells()
     # the exact global load: every cell's emitted counts, de-duplicated
     load = mesh_mod.psum([auxes[c]["load"] for c in cells])[0] / dup
-    dispatched = mesh_mod.psum([auxes[c]["dispatched"].float() for c in cells])[0] / dup
-    y = x_sharding.unshard({c: ys[c].reshape(slabs[c].shape) for c in cells}, x3.device)
+    # a diagnostic repro does not have: summed on the home device, no collective
+    dispatched = torch.stack([auxes[c]["dispatched"].to(x3.device) for c in cells])
+    dispatched = dispatched.float().sum() / dup
+    slab_shape = next(iter(slabs.values())).shape
+    y = x_sharding.unshard(_each(ys, lambda yy: yy.reshape(slab_shape)), x3.device)
     return y, {"load": load.to(x3.device), "dispatched": dispatched.to(x3.device)}

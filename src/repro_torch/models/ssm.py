@@ -133,11 +133,18 @@ def mamba2_sequential_core(xh, b_mat, c_mat, dt, a, d_skip, h0=None):
     for t in range(s):
         x_t, b_t, c_t, dt_t = xh[:, t], b_mat[:, t], c_mat[:, t], dt[:, t]
         decay = torch.exp(dt_t * a[None, :])  # [B, H]
-        upd = torch.einsum("bhp,bn->bhpn", x_t * dt_t[..., None], b_t)
+        upd = _outer((x_t * dt_t[..., None]).reshape(bsz, h * p), b_t).reshape(bsz, h, p, n)
         h_state = h_state * decay[..., None, None] + upd
         ys.append(torch.einsum("bhpn,bn->bhp", h_state, c_t))
     y = torch.stack(ys, 1) + xh * d_skip[None, None, :, None]
     return y, h_state
+
+
+def _outer(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a[..., :, None] * b[..., None, :]`` as a product over one term (the
+    same values): the pairwise step ``repro``'s ``jnp.einsum`` takes as a
+    ``dot_general``, so that the two packages count the same FLOPs."""
+    return torch.matmul(a[..., :, None], b[..., None, :])
 
 
 # ---------------------------------------------------------------------------
@@ -178,10 +185,10 @@ def mamba2_chunked_core(xh, b_mat, c_mat, dt, a, d_skip, chunk: int, h0=None):
         xdt = x * dtt[..., None]
         y = torch.einsum("btih,bihp->bthp", w, xdt)
         # inter-chunk: the carried-in state read by C with decay exp(cum[t])
-        y = y + torch.einsum("btn,bhpn,bth->bthp", c, h_prev, torch.exp(cum))
+        y = y + torch.einsum("btnh,bhpn->bthp", _outer(c, torch.exp(cum)), h_prev)
         # state update: h = exp(cum[-1]) h + sum_i exp(cum[-1] - cum[i]) dt_i B_i x_i
         tail = torch.exp(cum[:, -1:, :] - cum)  # [B, T, H]
-        upd = torch.einsum("bihp,bin,bih->bhpn", xdt, b, tail)
+        upd = torch.einsum("bihp,bihn->bhpn", xdt, _outer(tail, b))
         h_prev = h_prev * torch.exp(cum[:, -1])[:, :, None, None] + upd
         ys.append(y)
     y = torch.stack(ys, 1).reshape(bsz, s + pad, h, p)[:, :s]
