@@ -302,6 +302,7 @@ from repro_torch.core.faults import FaultSpec, apply_table_faults, fault_blast_r
 from repro_torch.core.neuron import neuron_step  # noqa: E402
 from repro_torch.core.routing import ChipConstants, Fabric  # noqa: E402
 from repro_torch.core.tags import NetworkSpec, compile_network, concat_tables  # noqa: E402
+from repro_torch.core.tracing import device_ops  # noqa: E402
 from repro_torch.core.two_stage import (  # noqa: E402
     compact_events,
     stage2_cam_match,
@@ -424,9 +425,8 @@ def device_ms(fn, kernel_name: str | None, calls: int = 50) -> float | None:
             fn()
         torch.cuda.synchronize()
     total_us, count = 0.0, 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA and (
-                kernel_name is None or kernel_name in evt.name):
+    for evt in device_ops(prof.events()):
+        if kernel_name is None or kernel_name in evt.name:
             total_us += evt.time_range.elapsed_us()
             count += 1
     per = calls if kernel_name is None else count
@@ -478,7 +478,7 @@ def _device_ops_per_call(fn, tries: int = 3) -> list[str]:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        ops = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        ops = [e.name for e in device_ops(prof.events())]
         if ops:
             break
     return ops
@@ -1037,10 +1037,9 @@ def profile_serving(pool: AerSessionPool, suits, sessions=None) -> dict:
         prof_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_kernel: dict[str, float] = {}
     launches = 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
-            launches += 1
+    for evt in device_ops(prof.events()):
+        by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+        launches += 1
     busy = sum(by_kernel.values()) / steps
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     return {
@@ -2574,10 +2573,9 @@ def _shard_step_kernels(fleet, top: int = 5) -> dict:
             torch.cuda.synchronize()
         by: collections.Counter = collections.Counter()
         ops = 0
-        for evt in prof.events():
-            if evt.device_type == torch.autograd.DeviceType.CUDA:
-                by[evt.name[:80]] += evt.time_range.elapsed_us() / 1e3
-                ops += 1
+        for evt in device_ops(prof.events()):
+            by[evt.name[:80]] += evt.time_range.elapsed_us() / 1e3
+            ops += 1
         if ops:
             return {"device_ops": ops, "top_device_ms": dict(by.most_common(top))}
     return {"device_ops": 0, "top_device_ms": {}}
@@ -3009,10 +3007,9 @@ def profile_lm(fn, per: int = 1, kernel: str | None = None, inference: bool = Tr
         _, wall_ms = _timed(fn)
     by_kernel: dict[str, float] = {}
     n_ops = 0
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
-            n_ops += 1
+    for evt in device_ops(prof.events()):
+        by_kernel[evt.name] = by_kernel.get(evt.name, 0.0) + evt.time_range.elapsed_us() / 1e3
+        n_ops += 1
     busy = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
     out = {

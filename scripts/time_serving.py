@@ -96,8 +96,12 @@ def main() -> None:
             for _ in range(args.steps):
                 pool.step()
             torch.cuda.synchronize()
-        device = [e.time_range.elapsed_us() for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        # the device's operations, without its mirrors of the engine's
+        # profiler spans (named as their host spans)
+        events = prof.events()
+        host = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+        device = [e.time_range.elapsed_us() for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in host]
         legs[label]["device_busy_ms"] = sum(device) / 1e3 / args.steps
         legs[label]["device_ops"] = len(device) / args.steps
         legs[label]["profile"] = getattr(pool, "profile", None) is not None

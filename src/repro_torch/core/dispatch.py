@@ -48,6 +48,7 @@ import torch
 
 from repro_torch.core import routing
 from repro_torch.core.device import resolve_device
+from repro_torch.core.tracing import device_ops
 from repro_torch.core.two_stage import (
     N_SYN_TYPES,
     compact_events,
@@ -857,8 +858,7 @@ def _time_calls_us(fns: dict, spikes: torch.Tensor, iters: int) -> dict[str, flo
             for _ in range(calls):
                 fn(spikes)
             torch.cuda.synchronize(spikes.device)
-        busy = sum(e.time_range.elapsed_us() for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy = sum(e.time_range.elapsed_us() for e in device_ops(prof.events()))
         if busy <= 0:
             raise RuntimeError(f"autotune: the trace of {cand!r} shows no device time")
         out[cand] = busy / calls

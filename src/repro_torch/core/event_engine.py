@@ -71,6 +71,7 @@ from repro_torch.core.dispatch import (
 from repro_torch.core.neuron import NeuronParams, NeuronState
 from repro_torch.core.routing import Fabric, default_tile_of_cluster
 from repro_torch.core.tags import RoutingTables, TableSlab, concat_tables
+from repro_torch.core.tracing import span
 from repro_torch.core.two_stage import (
     N_SYN_TYPES,
     compact_events,
@@ -343,32 +344,42 @@ class EventEngine:
         updated in place and stays readable (``repro``'s ``donate_carry``
         has no counterpart here).
         """
-        dtype = carry[1].dtype
-        input_activity = self._as_input(input_activity, dtype)
-        if i_ext is not None:
-            i_ext = self._as_input(i_ext, dtype)
+        with span("repro_torch.step"):
+            dtype = carry[1].dtype
+            input_activity = self._as_input(input_activity, dtype)
+            if i_ext is not None:
+                i_ext = self._as_input(i_ext, dtype)
+            with span("repro_torch.deliver"):
+                drive, tail, stats = self._deliver(carry, input_activity)
+            with span("repro_torch.neuron"):
+                state, spikes = neuron_mod.neuron_step(carry[0], drive, self.params, i_ext)
+        if self.fabric_backend is None and self.queue_capacity is None:
+            return (state, spikes), spikes
+        return (state, spikes, *tail), (spikes, stats)
+
+    def _deliver(self, carry, input_activity):
+        """This step's delivery of the carried spikes on the engine's path:
+        ``(drive, the carry's delay line after it, DeliveryStats)``."""
         t = self.tables
         if self.fabric_ring:
-            state, prev_spikes, ring, cursor = carry
+            _, prev_spikes, ring, cursor = carry
             drive, ring, cursor, stats = self.fabric_backend.deliver_fabric_ring(
                 prev_spikes, self._fabric_entries, t.cam_tag, t.cam_syn,
                 self.cluster_size, self.k_tags, ring, cursor,
                 external_activity=input_activity, queue_capacity=self.queue_capacity,
                 syn_onehot=t.cam_syn_onehot,
             )
-            state, spikes = neuron_mod.neuron_step(state, drive, self.params, i_ext)
-            return (state, spikes, ring, cursor), (spikes, stats)
+            return drive, (ring, cursor), stats
         if self.fabric_backend is not None:
-            state, prev_spikes, inflight = carry
+            _, prev_spikes, inflight = carry
             drive, inflight, stats = self.fabric_backend.deliver_fabric(
                 prev_spikes, t.src_tag, t.src_dest, t.cam_tag, t.cam_syn,
                 self.cluster_size, self.k_tags, inflight=inflight,
                 external_activity=input_activity, queue_capacity=self.queue_capacity,
                 syn_onehot=t.cam_syn_onehot, entry_alive=self._fault_entry_alive,
             )
-            state, spikes = neuron_mod.neuron_step(state, drive, self.params, i_ext)
-            return (state, spikes, inflight), (spikes, stats)
-        state, prev_spikes = carry
+            return drive, (inflight,), stats
+        _, prev_spikes = carry
         drive, stats = self.backend.deliver(
             prev_spikes,
             t.src_tag,
@@ -384,9 +395,7 @@ class EventEngine:
             syn_onehot=t.cam_syn_onehot,
             with_stats=True,
         )
-        state, spikes = neuron_mod.neuron_step(state, drive, self.params, i_ext)
-        out = spikes if self.queue_capacity is None else (spikes, stats)
-        return (state, spikes), out
+        return drive, (), stats
 
     def reset_slots(self, carry, mask):
         """Per-slot state surgery for multi-tenant serving.
@@ -569,27 +578,28 @@ class EventEngine:
         step taken on zero input and discarded (a step never updates the
         carry it is given), so on the card that step launches its kernels.
         """
-        t_steps = input_events.shape[0]
-        i_shape = () if i_ext is None else tuple(np.shape(i_ext))
-        time_varying = len(i_shape) == carry[1].ndim + 1 and i_shape[0] == t_steps
-        outs = []
-        for t in range(t_steps):
-            carry, out = self.step(
-                carry, input_events[t], i_ext[t] if time_varying else i_ext
-            )
-            outs.append(out)
-        if t_steps == 0:
-            zeros = torch.zeros(tuple(input_events.shape[1:]), dtype=carry[1].dtype)
-            outs.append(self.step(carry, zeros, None if time_varying else i_ext)[1])
-        if self.queue_capacity is None and self.fabric_backend is None:
-            return carry, torch.stack(outs)[:t_steps]
-        spikes = torch.stack([s for s, _ in outs])[:t_steps]
-        stats = DeliveryStats(**{
-            f.name: None if getattr(outs[0][1], f.name) is None
-            else torch.stack([getattr(st, f.name) for _, st in outs])[:t_steps]
-            for f in dataclasses.fields(DeliveryStats)
-        })
-        return carry, (spikes, stats)
+        with span("repro_torch.run"):
+            t_steps = input_events.shape[0]
+            i_shape = () if i_ext is None else tuple(np.shape(i_ext))
+            time_varying = len(i_shape) == carry[1].ndim + 1 and i_shape[0] == t_steps
+            outs = []
+            for t in range(t_steps):
+                carry, out = self.step(
+                    carry, input_events[t], i_ext[t] if time_varying else i_ext
+                )
+                outs.append(out)
+            if t_steps == 0:
+                zeros = torch.zeros(tuple(input_events.shape[1:]), dtype=carry[1].dtype)
+                outs.append(self.step(carry, zeros, None if time_varying else i_ext)[1])
+            if self.queue_capacity is None and self.fabric_backend is None:
+                return carry, torch.stack(outs)[:t_steps]
+            spikes = torch.stack([s for s, _ in outs])[:t_steps]
+            stats = DeliveryStats(**{
+                f.name: None if getattr(outs[0][1], f.name) is None
+                else torch.stack([getattr(st, f.name) for _, st in outs])[:t_steps]
+                for f in dataclasses.fields(DeliveryStats)
+            })
+            return carry, (spikes, stats)
 
     # ------------------------------------------------------------------
     # Multi-device (DESIGN.md §2): the step over a single-process mesh

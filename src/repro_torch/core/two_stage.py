@@ -36,6 +36,8 @@ import math
 
 import torch
 
+from repro_torch.core.tracing import span
+
 __all__ = [
     "N_SYN_TYPES",
     "EventQueue",
@@ -81,23 +83,24 @@ def compact_events(spikes: torch.Tensor, capacity: int) -> EventQueue:
     q = min(int(capacity), n)
     if q <= 0:
         raise ValueError(f"queue capacity must be positive, got {capacity}")
-    batch_shape = spikes.shape[:-1]
-    active = spikes != 0
-    pos = torch.cumsum(active, dim=-1, dtype=torch.int32).reshape(-1, n)
-    targets = torch.arange(1, q + 1, dtype=torch.int32, device=spikes.device)
-    src = torch.searchsorted(
-        pos, targets.expand(pos.shape[0], q).contiguous(), right=False, out_int32=True
-    ).reshape(*batch_shape, q)
-    kept = src < n  # slot beyond the last active source -> empty
-    src = torch.where(kept, src, -1)
-    weight = torch.where(
-        kept,
-        torch.take_along_dim(spikes, src.clamp(min=0).long(), dim=-1),
-        torch.zeros((), dtype=spikes.dtype, device=spikes.device),
-    )
-    n_active = active.sum(dim=-1, dtype=torch.int32)
-    dropped = n_active - kept.sum(dim=-1, dtype=torch.int32)
-    return EventQueue(src=src, weight=weight, dropped=dropped)
+    with span("repro_torch.deliver.queue"):
+        batch_shape = spikes.shape[:-1]
+        active = spikes != 0
+        pos = torch.cumsum(active, dim=-1, dtype=torch.int32).reshape(-1, n)
+        targets = torch.arange(1, q + 1, dtype=torch.int32, device=spikes.device)
+        src = torch.searchsorted(
+            pos, targets.expand(pos.shape[0], q).contiguous(), right=False, out_int32=True
+        ).reshape(*batch_shape, q)
+        kept = src < n  # slot beyond the last active source -> empty
+        src = torch.where(kept, src, -1)
+        weight = torch.where(
+            kept,
+            torch.take_along_dim(spikes, src.clamp(min=0).long(), dim=-1),
+            torch.zeros((), dtype=spikes.dtype, device=spikes.device),
+        )
+        n_active = active.sum(dim=-1, dtype=torch.int32)
+        dropped = n_active - kept.sum(dim=-1, dtype=torch.int32)
+        return EventQueue(src=src, weight=weight, dropped=dropped)
 
 
 def gather_event_entries(

@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.dispatch import DeliveryStats
+from repro_torch.core.tracing import span
 from repro_torch.core.two_stage import N_SYN_TYPES, _scatter_count
 from repro_torch.kernels import _split
 from repro_torch.kernels._build import check_status, device_scope, library, require
@@ -473,44 +474,45 @@ def fabric_deliver_ring(
     d1 = max_delay + 1
     batch_shape = spikes.shape[:-1]
 
-    # queue admission: compact_events truncation in mask form, the first
-    # ``capacity`` active sources (ascending id = arbiter scan order) win
-    active = spikes != 0
-    cap = n if queue_capacity is None else min(int(queue_capacity), n)
-    if cap >= n:
-        in_q = active
-        dropped = torch.zeros(batch_shape, dtype=torch.int32, device=spikes.device)
-    else:
-        pos = torch.cumsum(active, dim=-1, dtype=torch.int32)
-        in_q = active & (pos <= cap)
-        dropped = (pos[..., -1] - cap).clamp(min=0)
+    with span("repro_torch.deliver.queue"):
+        # queue admission: compact_events truncation in mask form, the first
+        # ``capacity`` active sources (ascending id = arbiter scan order) win
+        active = spikes != 0
+        cap = n if queue_capacity is None else min(int(queue_capacity), n)
+        if cap >= n:
+            in_q = active
+            dropped = torch.zeros(batch_shape, dtype=torch.int32, device=spikes.device)
+        else:
+            pos = torch.cumsum(active, dim=-1, dtype=torch.int32)
+            in_q = active & (pos <= cap)
+            dropped = (pos[..., -1] - cap).clamp(min=0)
 
-    act_e = torch.index_select(in_q, -1, entries.src) & entries.valid  # [..., M]
-    # fault-severed entries always drop, counted with the link drops (a dead
-    # link is a zero-capacity link), and never contend for a live link's
-    # FIFO slots
-    fault_mask = None
-    if entries.severed:
-        act_all, act_e = act_e, act_e & entries.alive
-        fault_mask = act_all & ~entries.alive
+        act_e = torch.index_select(in_q, -1, entries.src) & entries.valid  # [..., M]
+        # fault-severed entries always drop, counted with the link drops (a dead
+        # link is a zero-capacity link), and never contend for a live link's
+        # FIFO slots
+        fault_mask = None
+        if entries.severed:
+            act_all, act_e = act_e, act_e & entries.alive
+            fault_mask = act_all & ~entries.alive
 
-    # per-directed-link FIFO arbitration without a sort: entries are in the
-    # arbiter's scan order, so an active cross-tile entry's FIFO position is
-    # the count of active cross-tile entries since its link start
-    if link_capacity is None:
-        kept = act_e
-        drop_mask = torch.zeros_like(act_e) if fault_mask is None else fault_mask
-    else:
-        cnt = (act_e & entries.cross).to(torch.int32)
-        excl = torch.cumsum(cnt, dim=-1, dtype=torch.int32) - cnt
-        pos_in_link = excl - torch.index_select(excl, -1, entries.link_start)
-        keep_cross = pos_in_link < link_capacity
-        kept = act_e & (~entries.cross | keep_cross)
-        drop_mask = act_e & entries.cross & ~keep_cross
-        if fault_mask is not None:
-            # disjoint masks (alive vs severed), so the union's per-bin
-            # counts sum to exactly the scalar fault + overflow totals
-            drop_mask = drop_mask | fault_mask
+        # per-directed-link FIFO arbitration without a sort: entries are in the
+        # arbiter's scan order, so an active cross-tile entry's FIFO position is
+        # the count of active cross-tile entries since its link start
+        if link_capacity is None:
+            kept = act_e
+            drop_mask = torch.zeros_like(act_e) if fault_mask is None else fault_mask
+        else:
+            cnt = (act_e & entries.cross).to(torch.int32)
+            excl = torch.cumsum(cnt, dim=-1, dtype=torch.int32) - cnt
+            pos_in_link = excl - torch.index_select(excl, -1, entries.link_start)
+            keep_cross = pos_in_link < link_capacity
+            kept = act_e & (~entries.cross | keep_cross)
+            drop_mask = act_e & entries.cross & ~keep_cross
+            if fault_mask is not None:
+                # disjoint masks (alive vs severed), so the union's per-bin
+                # counts sum to exactly the scalar fault + overflow totals
+                drop_mask = drop_mask | fault_mask
 
     if per_link_stats:
         if n_tiles is None:
