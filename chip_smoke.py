@@ -23,17 +23,23 @@ Phases, each of which fails the run on any error:
      over 2*(max_delay+1)+1 steps on a geometry with max_delay = 2 and link
      capacity 2, where the kernel and plain legs must carry equal rings. The
      registers, spills, shared bytes and blocks per SM of the three stage-2
-     kernels are logged;
+     kernels are logged. ``neuron_step`` is held bit for bit against the
+     eager step (``neuron_step_eager``) at B = 32 and at the benchmark
+     cells' B = 8192 (N = 1536), under the default and the Table-V neuron
+     parameters, with and without an external current, must run one device
+     operation a call, and is timed at B = 8192 beside the eager step and
+     its bound of 76 bytes a neuron;
   3. the serving path: the offline-Hebbian calibration run, then a pool of
      32 slots serving 64 poker-DVS sessions (seed 7, 16 events per step)
      once per backend (fused, cuda, reference, and the fabric with its
      kernel and with ``kernel=False``); the queued backends must agree on
      every session, the two fabric legs must agree on every session (link
      drops included), every run must reach accuracy >= 0.95, and each
-     kernel must have been launched once per engine step of its backend's
-     run; a short fabric pool with link capacity 8 holds the kernel leg
-     against the plain one where links drop; a small network is held
-     against the dense oracle on the card; one profiled window of serving
+     delivery kernel must have been launched once per engine step of its
+     backend's run, ``neuron_step`` once per engine step of every run; a
+     short fabric pool with link capacity 8 holds the kernel leg against
+     the plain one where links drop; a small network is held against the
+     dense oracle (its neuron step the eager one) on the card; one profiled window of serving
      steps per kernel backend says where the device time goes;
   3b. the compiler path (routing compiler v2, the traffic feedback loop and
      the dispatch autotuner), each part with the launch counts set to 0
@@ -299,7 +305,8 @@ from repro_torch.core.event_engine import (  # noqa: E402
     dense_weights_from_tables,
 )
 from repro_torch.core.faults import FaultSpec, apply_table_faults, fault_blast_radius  # noqa: E402
-from repro_torch.core.neuron import neuron_step  # noqa: E402
+from repro_torch.core import neuron as neuron_mod  # noqa: E402
+from repro_torch.core.neuron import NeuronParams, NeuronState, neuron_step_eager  # noqa: E402
 from repro_torch.core.routing import ChipConstants, Fabric  # noqa: E402
 from repro_torch.core.tags import NetworkSpec, compile_network, concat_tables  # noqa: E402
 from repro_torch.core.tracing import device_ops  # noqa: E402
@@ -322,6 +329,7 @@ from repro_torch.kernels.cam_match import ops as cam_ops  # noqa: E402
 from repro_torch.kernels.cam_match.ref import cam_counts  # noqa: E402
 from repro_torch.kernels.fabric_deliver import ops as fabric_ops  # noqa: E402
 from repro_torch.kernels.fused_deliver import ops as fused_ops  # noqa: E402
+from repro_torch.kernels.neuron_step import ops as neuron_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops  # noqa: E402
 from repro_torch.models import attention as attn_ops  # noqa: E402
 from repro_torch.models import layers as lm_layers  # noqa: E402
@@ -360,6 +368,8 @@ from repro_torch.train import optimizer as train_opt  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+NEURON_OPS = 50  # float32 operations of one neuron's step (perfbench/reference/counts_step.py)
+CELL_BATCH = 8192  # the benchmark cells' streams (perfbench/workloads/)
 POOL, SESSIONS, SEED, EVENTS_PER_STEP = 32, 64, 7, 16
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 512, 32  # rwkv6-3b serving: prompts, prompt length, new tokens
 OUT_DIR = ROOT / "build" / "chip_smoke"  # long results; build/ is not committed
@@ -461,6 +471,7 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
             f"random floats, within allclose(rtol=1e-6, atol=1e-6); "
             f"{v['ms'] * 1e3:.2f} us/call (kernel on the device {v['device_ms']} ms), plain "
             f"{v['plain_ms'] * 1e3:.2f} us, bound {v['bound_ms'] * 1e3:.3f} us ({v['bound_by']})")
+    out["neuron_step"] = neuron_kernel_entry(dev, t.n_neurons, gen)
     out["rwkv6_chunk"] = rwkv_kernel_entry(dev)
     return out
 
@@ -801,6 +812,105 @@ def check_fabric_wrap(dev: torch.device) -> None:
         f"max_delay {max_delay}, link capacity 2 ({link_dropped} link drops)")
 
 
+def _neuron_case(dev, gen, b: int, n: int, with_ext: bool):
+    """A state, a drive and maybe an external current at ``[b, n]`` that
+    reach every branch of the step: one neuron in eight far below threshold
+    (the exponent clamped at -20), one far above it (clamped at 20), one at
+    ``v_peak``, one with exactly 1 ms of refractory time left; about a third
+    refractory; shunting currents up to 20; integer event drives (8.0 an
+    event) mixed with arbitrary floats."""
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen, device=dev)
+
+    kind = torch.randint(0, 8, (b, n), generator=gen, device=dev)
+    v = u(-0.08, 0.005, b, n)
+    v = torch.where(kind == 0, u(-0.5, -0.2, b, n), v)
+    v = torch.where(kind == 1, u(0.05, 0.3, b, n), v)
+    v = torch.where(kind == 2, torch.zeros_like(v), v)
+    refrac = torch.where(torch.rand((b, n), generator=gen, device=dev) < 0.3,
+                         u(0.0, 3e-3, b, n), torch.zeros_like(v))
+    refrac = torch.where(kind == 3, torch.full_like(v, 1e-3), refrac)
+    i_syn = u(0.0, 2.0, b, n, 4)
+    i_syn[..., 3] *= 10.0
+    drive = torch.randint(0, 5, (b, n, 4), generator=gen, device=dev).float() * 8.0
+    drive = torch.where(torch.rand((b, n, 4), generator=gen, device=dev) < 0.5,
+                        u(0.0, 40.0, b, n, 4), drive)
+    state = NeuronState(v=v, w=u(0.0, 0.05, b, n), refrac=refrac, i_syn=i_syn)
+    i_ext = torch.randn((b, n), generator=gen, device=dev) * 2.0 if with_ext else None
+    return state, drive, i_ext
+
+
+def neuron_kernel_entry(dev, n: int, gen) -> dict:
+    """``neuron_step`` at the serving pool's shape (B = 32) and the
+    benchmark cells' (B = 8192), N = 1536, under the default and the
+    Table-V neuron parameters, with and without an external current: the
+    wrapper on card tensors equal to ``neuron_step_eager`` bit for bit
+    (state, spikes), spiking and refractory neurons present; one call one
+    device operation; timed at the cells' shape beside the eager step. Its
+    bound is one read and one write of the state, one read of the drive and
+    one write of the spikes: 76 bytes a neuron."""
+    cases = {}
+    for shape_name, b in (("pool", POOL), ("cells", CELL_BATCH)):
+        for p_name, params in (("default", NeuronParams()), ("table_v", poker_neuron_params())):
+            for with_ext in (False, True):
+                state, drive, i_ext = _neuron_case(dev, gen, b, n, with_ext)
+                decay, ws = neuron_mod._synapse_constants(params, torch.float32, dev)
+                got = neuron_ops.neuron_step(state.v, state.w, state.refrac, state.i_syn, drive,
+                                             i_ext, decay, ws, params)
+                torch.cuda.synchronize()
+                e_state, e_spikes = neuron_step_eager(state, drive, params, i_ext)
+                want = (e_state.v, e_state.w, e_state.refrac, e_state.i_syn, e_spikes)
+                name = f"{shape_name} B = {b}, {p_name} parameters" + (", i_ext" if with_ext else "")
+                for leaf, x, y in zip(("v", "w", "refrac", "i_syn", "spikes"), got, want):
+                    if x.shape != y.shape or not torch.equal(x, y):
+                        raise AssertionError(f"neuron_step {name}: {leaf} differs from the eager "
+                                             f"step in {int((x != y).sum())} of {y.numel()}")
+                spiked, refractory = int(got[4].sum()), int((state.refrac > 0).sum())
+                if not (0 < spiked < b * n and refractory > 0):
+                    raise AssertionError(f"neuron_step {name}: {spiked} spikes, {refractory} "
+                                         "refractory neurons; the case misses a branch")
+                cases[name] = {"spikes": spiked, "refractory": refractory}
+    params = poker_neuron_params()
+    state, drive, _ = _neuron_case(dev, gen, CELL_BATCH, n, False)
+    decay, ws = neuron_mod._synapse_constants(params, torch.float32, dev)
+    args = (state.v, state.w, state.refrac, state.i_syn, drive, None, decay, ws, params)
+    call = lambda: neuron_ops.neuron_step(*args)  # noqa: E731
+    ops = _device_ops_per_call(call)
+    if len(ops) != 1 or "neuron_step_kernel" not in ops[0]:
+        raise AssertionError(f"one neuron_step call ran {len(ops)} device operations: {ops}")
+    info = neuron_ops.kernel_info()
+    n_bytes = _nbytes(*args[:5], *call())
+    if n_bytes != 76 * CELL_BATCH * n:
+        raise AssertionError(f"neuron_step moves {n_bytes} bytes, not 76 a neuron")
+    bound_ms, bound_by = _bound(n_bytes, NEURON_OPS * CELL_BATCH * n)
+    entry = {
+        "name": "neuron_step",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/neuron_step/csrc/neuron_step.cu",
+        "replaces": "src/repro/core/neuron.py:78",
+        "max_abs_err": 0.0,  # every case above equal bit for bit
+        "ms": time_ms(call),
+        "plain_ms": time_ms(lambda: neuron_step_eager(state, drive, params)),
+        "device_ms": device_ms(call, "neuron_step_kernel"),
+        "device_ops_per_call": len(ops),
+        "cases": cases,
+        **{f"kernel_{key}": v for key, v in info.items()},
+        "bytes": n_bytes,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # the eager step (plain_ms) is some forty PyTorch calls
+        "shape": f"v, w, refrac [{CELL_BATCH},{n}] f32, i_syn, drive [{CELL_BATCH},{n},4] f32",
+    }
+    log(f"neuron_step: {info['registers']} registers, {info['local_bytes']} local (spill) bytes "
+        f"per thread, {info['blocks_per_sm']} blocks per SM; bit for bit the eager step in "
+        f"{len(cases)} cases ({', '.join(cases)})")
+    log(f"neuron_step at B = {CELL_BATCH}, N = {n}: {entry['ms'] * 1e3:.2f} us/call (kernel on "
+        f"the device {entry['device_ms']} ms, {bound_ms / entry['device_ms']:.1%} of its bound), "
+        f"eager {entry['plain_ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.3f} us ({bound_by}; "
+        f"{n_bytes} bytes)")
+    return entry
+
+
 def _chunk_work(b: int, t: int, h: int, p: int) -> tuple[int, int]:
     """(float32 add/sub/mul count, exp count) of one rwkv6_chunk call, as the
     kernel computes it per (batch, head) on sub-chunks of 16 tokens: the
@@ -949,8 +1059,10 @@ KERNEL_WRAPPERS = {
     "fused_deliver": fused_ops.fused_deliver,
     "fabric_deliver": fabric_ops.fabric_deliver,
     "rwkv6_chunk": rwkv_ops.rwkv6_chunk,
+    "neuron_step": neuron_ops.neuron_step,
 }
-# serving legs: (label, backend, fabric_options, the kernel it must launch once per step)
+# serving legs: (label, backend, fabric_options, the delivery kernel it must
+# launch once per step; every leg launches neuron_step once per step too)
 LEGS = (
     ("fused", "fused", None, "fused_deliver"),
     ("cuda", "cuda", None, "cam_match"),
@@ -969,9 +1081,17 @@ def _read_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
 
 
+def _steps(n: int, kernel: str | None = None) -> dict[str, int]:
+    """The launches of ``n`` engine steps (mesh cell steps on a sharded
+    engine): the neuron step once each, and the backend's delivery
+    ``kernel`` (None on a plain leg) once each."""
+    return {"neuron_step": n, **({kernel: n} if kernel else {})}
+
+
 def check_dense_oracle(dev: torch.device) -> None:
     """A small random network on the card: the kernel backends' spikes and
-    state equal the dense oracle's, step by step."""
+    state equal the dense oracle's (dense delivery, the eager neuron step),
+    step by step."""
     rng = np.random.default_rng(SEED)
     spec = NetworkSpec(n_neurons=96, cluster_size=32, k_tags=64, max_cam_words=32)
     for _ in range(150):
@@ -1059,7 +1179,8 @@ def _serve_leg(cc, dev, backend, fabric_options, suits, expect_kernel, pool_size
     """Serve ``suits``' sessions on one leg (on ``engine`` when given, else
     on a new one for ``backend``): warm up, then reset the launch counts,
     serve, read the counts and check them against one launch of
-    ``expect_kernel`` per engine step (and none of the others)."""
+    ``expect_kernel`` and one of ``neuron_step`` per engine step (and none
+    of the others)."""
     if engine is None:
         engine = build_poker_engine(cc.tables, backend=backend, device=dev,
                                     fabric_options=fabric_options)
@@ -1073,7 +1194,7 @@ def _serve_leg(cc, dev, backend, fabric_options, suits, expect_kernel, pool_size
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _read_counts()
-    want = {name: (pool.n_steps if name == expect_kernel else 0) for name in counts}
+    want = {name: _steps(pool.n_steps, expect_kernel).get(name, 0) for name in counts}
     if counts != want:
         raise AssertionError(f"{backend} {fabric_options}: launches {counts}, expected {want}")
     if not all(torch.isfinite(x).all() for x in (pool.carry[0].v, pool.carry[0].i_syn)):
@@ -1105,10 +1226,12 @@ def phase_serving(dev: torch.device) -> dict[str, int]:
     suits = rng.integers(0, 4, SESSIONS)
     runs: dict[str, dict] = {}
     launches: dict[str, int] = {}
+    launches["neuron_step"] = 0
     for label, backend, options, kernel in LEGS:
         r = runs[label] = _serve_leg(cc, dev, backend, options, suits, kernel)
         if kernel is not None:
             launches[kernel] = r["launches"][kernel]
+        launches["neuron_step"] += r["launches"]["neuron_step"]
         log(f"serve[{label}]: {SESSIONS} sessions, accuracy {r['accuracy']:.4f}, latency p50 "
             f"{r['latency_p50_steps']:.1f} / p99 {r['latency_p99_steps']:.1f} steps, "
             f"{r['sessions_per_s']:.2f} sessions/s, {r['steps_per_s']:.2f} steps/s "
@@ -1170,7 +1293,7 @@ LOOP_SEED, LOOP_STEPS = 23, 16
 LOOP_DROPS = {"before": 2219, "after": 374}
 LOOP_PLACEMENT = [4, 5, 4, 4, 4, 1]
 SHUFFLE_DROPS = {"v1_default": 904, "v2_optimized": 154}
-COMPILER_PATH_KERNELS = ("cam_match", "fused_deliver", "fabric_deliver")
+COMPILER_PATH_KERNELS = ("cam_match", "fused_deliver", "fabric_deliver", "neuron_step")
 
 
 def _counted(fn):
@@ -1268,7 +1391,7 @@ def check_feedback_loop(dev, launched) -> dict:
 
     legs = {}
     for kernel in (True, False):
-        want = {"fabric_deliver": LOOP_STEPS} if kernel else {}
+        want = _steps(LOOP_STEPS, "fabric_deliver" if kernel else None)
         before, counts = _counted(lambda: serve(pool_on(STALE_PLACEMENT, kernel)))
         _expect_launches(counts, want, f"feedback loop before, kernel={kernel}")
         launched.update(counts)
@@ -1347,7 +1470,7 @@ def _shuffle_step(tables, fab, dev, kernel):
     carry = (state, torch.ones_like(spikes), ring, cursor)
     zero = torch.zeros((1, tables.n_clusters, tables.k_tags), device=dev)
     (carry, (spikes, stats)), counts = _counted(lambda: eng.step(carry, zero))
-    _expect_launches(counts, {"fabric_deliver": 1} if kernel else {}, "shuffle step")
+    _expect_launches(counts, _steps(1, "fabric_deliver" if kernel else None), "shuffle step")
     return (spikes, *carry[2:]), stats, counts
 
 
@@ -1400,7 +1523,7 @@ def check_retargeted(spec, dev, launched) -> dict:
             drive = stage2_cam_match(ext, eng.tables.cam_tag, eng.tables.cam_syn, t.cluster_size)
             for d, wd in enumerate(w):
                 drive = drive + torch.einsum("dst,bs->bdt", wd, history[d])
-            o_state, o_spikes = neuron_step(o_state, drive, eng.params)
+            o_state, o_spikes = neuron_step_eager(o_state, drive, eng.params)
             if int(stats.link_dropped.sum()) != 0 or not torch.equal(got, o_spikes):
                 raise AssertionError(f"2x2 artifact: spikes differ from the dense oracle at "
                                      f"step {step}")
@@ -1409,7 +1532,7 @@ def check_retargeted(spec, dev, launched) -> dict:
             total_spikes += int(got.sum())
 
     _, counts = _counted(run)
-    _expect_launches(counts, {"fabric_deliver": steps}, "2x2 artifact")
+    _expect_launches(counts, _steps(steps, "fabric_deliver"), "2x2 artifact")
     launched.update(counts)
     log(f"retarget to 2x2 x 4 cores of 32: feasible, binding {fz.binding} at "
         f"{fz.utilization['cores']:.0%}; saved and loaded under build/ with fingerprint "
@@ -1584,7 +1707,7 @@ BLAST_RADIUS = {"connections_before": 24576, "connections_lost": 1075,
                 "connections_gained": 1453, "connections_kept": 23501}
 MEMORY_COUNTS = {"accuracy": 0.984375, "latency_steps": 1183, "engine_steps": 41}
 KILL_AT = 5
-FAULTS_PATH_KERNELS = ("cam_match", "fused_deliver", "fabric_deliver")
+FAULTS_PATH_KERNELS = ("cam_match", "fused_deliver", "fabric_deliver", "neuron_step")
 
 
 def _with_placement(cc, placement):
@@ -1665,7 +1788,7 @@ def check_fault_classes(dev, v1, launched) -> dict:
         for ring in (True, False):
             eng = _faulted_engine(cc.tables, dev, fs, ring=ring)
             got[ring], counts = _counted(lambda: _class_counts(cc, suits, eng))
-            _expect_launches(counts, {"fabric_deliver": CLASS_STEPS if ring else 0},
+            _expect_launches(counts, _steps(CLASS_STEPS, "fabric_deliver" if ring else None),
                              f"fault class {name}, ring={ring}")
             launched.update(counts)
         if not got[True] == got[False] == CLASS_COUNTS[name]:
@@ -1712,7 +1835,7 @@ def check_migration(dev, v1, launched) -> dict:
     if len(pools) != 1:
         raise AssertionError(f"migration: {len(pools)} migrations, expected 1")
     steps = pools[0].n_steps
-    _expect_launches(counts, {"fabric_deliver": steps}, "migration")
+    _expect_launches(counts, _steps(steps, "fabric_deliver"), "migration")
     launched.update(counts)
     degraded = [e for e in events if e.kind == "pool-degraded"]
     got = {"results": len(results), "accuracy": float(np.mean([r.correct for r in results])),
@@ -1776,7 +1899,7 @@ def check_kill_restore(dev, v1, launched) -> dict:
             return build_poker_engine(cc.tables, backend=label, device=dev)
         (results, timing), counts = _counted(
             lambda: _serve_killed(cc, make_engine, suits, OUT_DIR / "ckpt" / label))
-        _expect_launches(counts, {kernel: timing["engine_steps"]}, f"kill-restore {label}")
+        _expect_launches(counts, _steps(timing["engine_steps"], kernel), f"kill-restore {label}")
         launched.update(counts)
         got = _key(results)
         if got != v1["results"][label]:
@@ -1926,7 +2049,7 @@ LOAD_AT = 4
 REPLACE_AT, AFTER_SWAP = 10, 6
 MM_KILL_AT = 5
 MM_MODELS = ("a", "b")
-MULTIMODEL_PATH_KERNELS = ("cam_match", "fused_deliver", "fabric_deliver")
+MULTIMODEL_PATH_KERNELS = ("cam_match", "fused_deliver", "fabric_deliver", "neuron_step")
 MM_MEMORY_SLACK = 1 << 20  # bytes: device memory after a load and an unload against before
 # the second, heterogeneous resident of part 6: 6 clusters of 256 at a smaller
 # K, S and E, random groups (1-6 sources, 4 targets in one cluster) from a seed
@@ -1985,7 +2108,7 @@ def check_two_model_queued(dev, v1, launched) -> dict:
         if (pool.engine.n_clusters, pool.engine.n_neurons) != (12, 3072):
             raise AssertionError(f"two-model engine: {pool.engine.n_clusters} clusters, "
                                  f"{pool.engine.n_neurons} neurons")
-        _expect_launches(counts, {kernel: pool.n_steps} if kernel else {},
+        _expect_launches(counts, _steps(pool.n_steps, kernel),
                          f"two-model pool on {backend}")
         launched.update(counts)
         if _key(results) != v1["results"][backend]:
@@ -2028,7 +2151,7 @@ def check_two_model_fabric(dev, v1, launched) -> dict:
                                               else _mixed(suits, len(sessions)),
                                               {**extra, "kernel": kernel})
             wall = time.perf_counter() - t0
-            _expect_launches(counts, {"fabric_deliver": pool.n_steps} if kernel else {},
+            _expect_launches(counts, _steps(pool.n_steps, "fabric_deliver" if kernel else None),
                              f"two-model {label}, kernel={kernel}")
             launched.update(counts)
             legs[kernel] = (pool, results, wall, counts)
@@ -2123,7 +2246,7 @@ def check_hot_load(dev, v1, launched) -> dict:
     out = {}
     for backend, kernel in (("fused", "fused_deliver"), ("fabric", "fabric_deliver")):
         r, counts = _counted(lambda: _hot_load(cc, dev, backend, suits))
-        _expect_launches(counts, {kernel: r["total_steps"]}, f"hot load on {backend}")
+        _expect_launches(counts, _steps(r["total_steps"], kernel), f"hot load on {backend}")
         launched.update(counts)
         if r["models"] != ["b"]:
             raise AssertionError(f"hot load on {backend}: resident {r['models']} after unload")
@@ -2209,7 +2332,7 @@ def check_replacement(dev, v1, launched) -> dict:
     control for the next 6 steps; ``retarget`` and ``drain_retired`` retire
     the old version."""
     (got, extra), counts = _counted(lambda: _replacement(v1["cc"], dev, v1["suits"]))
-    _expect_launches(counts, {"fabric_deliver": got["engine_steps"] + extra["control_steps"]},
+    _expect_launches(counts, _steps(got["engine_steps"] + extra["control_steps"], "fabric_deliver"),
                      "live re-placement")
     launched.update(counts)
     _pinned(got, MM_REPLACEMENT, "live re-placement")
@@ -2279,7 +2402,8 @@ def check_mm_kill_restore(dev, v1, launched, uninterrupted) -> dict:
     for backend, kernel in (("fused", "fused_deliver"), ("fabric", "fabric_deliver")):
         (results, timing), counts = _counted(lambda: _serve_killed_mm(
             v1["cc"], dev, backend, v1["suits"], OUT_DIR / "ckpt_multimodel" / backend))
-        _expect_launches(counts, {kernel: timing["engine_steps"]}, f"two-model kill-restore {backend}")
+        _expect_launches(counts, _steps(timing["engine_steps"], kernel),
+                         f"two-model kill-restore {backend}")
         launched.update(counts)
         if _key(results) != uninterrupted[backend]:
             raise AssertionError(f"two-model kill-restore on {backend}: sessions differ from the "
@@ -2485,7 +2609,7 @@ MD_CONTROL = {  # part 4
 }
 MD_SLOTS = 64
 MD_MIGRATE, MD_CKPT_AT, MD_KILL_AFTER, MD_VICTIM = 8, 3, 2, 2
-MULTIDEVICE_PATH_KERNELS = ("cam_match",)
+MULTIDEVICE_PATH_KERNELS = ("cam_match", "neuron_step")
 MD_TIMED_STEPS = 5
 
 
@@ -2610,7 +2734,7 @@ def _md_leg(what, make_fleet, sessions, want_summary, launched, suits=None) -> t
     t0 = time.perf_counter()
     results, counts = _counted(lambda: fleet.serve(sessions))
     wall = time.perf_counter() - t0
-    _expect_launches(counts, {"cam_match": _cells(fleet) * fleet.n_steps}, what)
+    _expect_launches(counts, _steps(_cells(fleet) * fleet.n_steps, "cam_match"), what)
     launched.update(counts)
     got = _md_summary(results, fleet)
     _pinned(got, want_summary, what)
@@ -2760,7 +2884,7 @@ def check_md_control(dev, v1, rc, base, launched) -> dict:
         return len(moved), drained, _md_drain(fleet, results)
 
     (moved, drained, results), counts = _counted(migration)
-    _expect_launches(counts, {"cam_match": 3 * fleet.n_steps}, "migration fleet")
+    _expect_launches(counts, _steps(3 * fleet.n_steps, "cam_match"), "migration fleet")
     launched.update(counts)
     got = {"migrated": moved, "drained": drained, **_md_summary(results, fleet)}
     _pinned(got, MD_CONTROL["migration"], "migration and drain")
@@ -2792,7 +2916,7 @@ def check_md_control(dev, v1, rc, base, launched) -> dict:
         return finished, (time.perf_counter() - t0) * 1e3
 
     (finished, save_ms), counts = _counted(until_checkpoint)
-    _expect_launches(counts, {"cam_match": 4 * MD_CKPT_AT}, "fleet before its checkpoint")
+    _expect_launches(counts, _steps(4 * MD_CKPT_AT, "cam_match"), "fleet before its checkpoint")
     launched.update(counts)
     t0 = time.perf_counter()
     small = ShardedSessionPool.restore(cc, AerServeConfig(pool_size=MD_SLOTS // 2),
@@ -2801,7 +2925,8 @@ def check_md_control(dev, v1, rc, base, launched) -> dict:
     restore_ms = (time.perf_counter() - t0) * 1e3
     occupied = sum(o for o, _ in small.occupancy().values())
     results, counts = _counted(lambda: _md_drain(small, list(finished)))
-    _expect_launches(counts, {"cam_match": 2 * (small.n_steps - MD_CKPT_AT)}, "restored fleet")
+    _expect_launches(counts, _steps(2 * (small.n_steps - MD_CKPT_AT), "cam_match"),
+                     "restored fleet")
     launched.update(counts)
     got = {"occupied": occupied, **_md_summary(results, small)}
     _pinned(got, MD_CONTROL["restore"], "restore onto 2 shards")
@@ -2823,7 +2948,7 @@ def check_md_control(dev, v1, rc, base, launched) -> dict:
 
     (held, recovered, recover_ms, results), counts = _counted(kill_and_recover)
     after = big.n_steps - MD_CKPT_AT - MD_KILL_AFTER
-    _expect_launches(counts, {"cam_match": 4 * MD_KILL_AFTER + 3 * after}, "killed fleet")
+    _expect_launches(counts, _steps(4 * MD_KILL_AFTER + 3 * after, "cam_match"), "killed fleet")
     launched.update(counts)
     got = {"held": held, "recovered": recovered, **_md_summary(results, big),
            "watchdog_events": len(events), "watched_shards": sorted(wd._per_shard)}

@@ -1130,8 +1130,10 @@ def dense_reference_step(
     external_drive: torch.Tensor | None = None,  # [..., N, 4]
     i_ext: torch.Tensor | None = None,
 ):
-    """Oracle step: dense matmul delivery instead of two-stage routing."""
+    """Oracle step: dense matmul delivery instead of two-stage routing, and
+    the neuron step in plain PyTorch operations (``neuron_step_eager``), so
+    that on the card it holds the neuron kernel too."""
     drive = torch.einsum("dst,...s->...dt", dense_w, prev_spikes)
     if external_drive is not None:
         drive = drive + external_drive
-    return neuron_mod.neuron_step(state, drive, params, i_ext)
+    return neuron_mod.neuron_step_eager(state, drive, params, i_ext)

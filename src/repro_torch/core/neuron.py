@@ -15,8 +15,9 @@ import torch
 
 from repro_torch.core.device import resolve_device
 from repro_torch.core.two_stage import N_SYN_TYPES
+from repro_torch.kernels.neuron_step import ops as neuron_kernel
 
-__all__ = ["NeuronParams", "NeuronState", "init_state", "neuron_step"]
+__all__ = ["NeuronParams", "NeuronState", "init_state", "neuron_step", "neuron_step_eager"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +74,11 @@ def _synapse_constants(params: NeuronParams, dtype: torch.dtype, device: torch.d
     """Per-synapse-type DPI decay ``exp(-dt / tau_syn)`` and weight
     ``w_syn`` on ``device``, built once per (params, dtype, device): a tensor
     made from host numbers is a copy the host waits on, which a step must
-    not make."""
+    not make. Its ``[4]`` shape is checked here, once, for every step that
+    reads the two."""
+    if len(params.tau_syn) != N_SYN_TYPES or len(params.w_syn) != N_SYN_TYPES:
+        raise ValueError(f"tau_syn and w_syn need {N_SYN_TYPES} numbers each, one per synapse "
+                         f"type; got {params.tau_syn} and {params.w_syn}")
     taus = torch.tensor(params.tau_syn, dtype=dtype, device=device)
     ws = torch.tensor(params.w_syn, dtype=dtype, device=device)
     return torch.exp(-params.dt / taus), ws
@@ -87,8 +92,32 @@ def neuron_step(
 ) -> tuple[NeuronState, torch.Tensor]:
     """One exponential-Euler step; returns ``(new_state, spikes [..., N])``.
 
-    Builds new tensors and leaves ``state`` untouched.
+    Builds new tensors and leaves ``state`` untouched. A state on the card
+    takes one CUDA kernel (``kernels/neuron_step``), equal to
+    :func:`neuron_step_eager` bit for bit: float32 only, and a ``ValueError``
+    for anything else. ``drive`` and ``i_ext`` may broadcast to the state's
+    shapes. Elsewhere the step is :func:`neuron_step_eager`.
     """
+    if not state.v.is_cuda:
+        return neuron_step_eager(state, drive, params, i_ext)
+    if drive.shape != state.i_syn.shape:
+        drive = drive.expand_as(state.i_syn)
+    if i_ext is not None and i_ext.shape != state.v.shape:
+        i_ext = i_ext.expand_as(state.v)
+    decay, ws = _synapse_constants(params, state.i_syn.dtype, state.i_syn.device)
+    *leaves, spikes = neuron_kernel.neuron_step(
+        state.v, state.w, state.refrac, state.i_syn, drive, i_ext, decay, ws, params)
+    return NeuronState(*leaves), spikes
+
+
+def neuron_step_eager(
+    state: NeuronState,
+    drive: torch.Tensor,
+    params: NeuronParams,
+    i_ext: torch.Tensor | None = None,
+) -> tuple[NeuronState, torch.Tensor]:
+    """:func:`neuron_step` in elementwise PyTorch operations, on any device
+    and dtype: the plain version of the CUDA kernel."""
     p = params
     dt = p.dt
     decay, ws = _synapse_constants(p, state.i_syn.dtype, state.i_syn.device)
