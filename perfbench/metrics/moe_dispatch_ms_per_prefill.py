@@ -1,0 +1,10 @@
+"""Device milliseconds a prefill batch launches inside the program's span
+``repro_torch.moe.dispatch`` (every MoE layer's router, top-k,
+``dispatch_slots``, gathers and scatters, and the combine); nothing where
+the program opens no such span or no device operation ran."""
+
+
+def read(record: dict) -> float | None:
+    work = record["trace"]["work"]
+    secs = work.get("moe_dispatch_s", 0.0)
+    return 1e3 * secs / work["prefills"] if secs > 0 else None

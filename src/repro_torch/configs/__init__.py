@@ -4,7 +4,10 @@
 the port's field-for-field copy of its config module. The port builds the
 blocks of all ten: attention with a dense or MoE FFN, encoders, frontend
 stubs, RWKV-6, MLA with MTP (deepseek-v3-671b), Mamba2 with a shared
-attention block (zamba2-2.7b).
+attention block (zamba2-2.7b). ``PORT_ARCHS`` names the port's own
+configurations, which ``repro`` does not have (deepseek-v2-lite: MLA with
+YaRN and dropless MoE, on ``configs.base.PortModelConfig``);
+``get_config`` reads both registries.
 
 ``SHAPES`` are ``repro``'s per-arch input shapes and ``cells()`` its 40
 (arch x shape) cells with their applicability flags (DESIGN.md §5), field
@@ -32,7 +35,10 @@ ARCHS: dict[str, str] = {
     "internvl2-76b": "repro_torch.configs.internvl2_76b",
 }
 
-
+# arch -> config module, for the port's own configurations (not in repro)
+PORT_ARCHS: dict[str, str] = {
+    "deepseek-v2-lite": "repro_torch.configs.deepseek_v2_lite",
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,9 +61,10 @@ LONG_OK = {"zamba2-2.7b", "rwkv6-3b"}
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
-    if arch not in ARCHS:
-        raise KeyError(f"unknown architecture {arch!r}; have {sorted(ARCHS)}")
-    mod = importlib.import_module(ARCHS[arch])
+    modules = {**ARCHS, **PORT_ARCHS}
+    if arch not in modules:
+        raise KeyError(f"unknown architecture {arch!r}; have {sorted(modules)}")
+    mod = importlib.import_module(modules[arch])
     return mod.smoke() if smoke else mod.config()
 
 
@@ -73,5 +80,5 @@ def cells():
     return out
 
 
-__all__ = ["ARCHS", "LONG_OK", "SHAPES", "BlockSpec", "ModelConfig", "Shape", "cells",
+__all__ = ["ARCHS", "LONG_OK", "PORT_ARCHS", "SHAPES", "BlockSpec", "ModelConfig", "Shape", "cells",
            "get_config"]

@@ -6,6 +6,12 @@ pattern is a repeating *period* of block descriptors repeated
 one module per layer. Frozen dataclasses, no imports beyond the standard
 library, field for field as in ``repro`` so a configuration means the same
 model in both packages.
+
+``PortModelConfig`` adds what only the port's own configurations use
+(``configs.PORT_ARCHS``, which ``repro`` does not have): YaRN rope
+scaling, top-k weights kept as the raw router probabilities, a routed
+scaling factor, and dropless expert dispatch. Code reads these options
+with :func:`option`, so a plain ``ModelConfig`` keeps its defaults.
 """
 
 from __future__ import annotations
@@ -181,3 +187,41 @@ class ModelConfig:
             total += self.n_enc_layers * (qkv + o + f) + self.n_layers * cross
             active += self.n_enc_layers * (qkv + o + f) + self.n_layers * cross
         return int(total), int(active)
+
+
+@dataclasses.dataclass(frozen=True)
+class YaRN:
+    """YaRN rope scaling (arXiv:2309.00071), as DeepSeek-V2 configures it:
+    the inverse frequencies blend extrapolated and ``factor``-interpolated
+    ones over a linear ramp between the correction dims of ``beta_fast``
+    and ``beta_slow`` rotations in ``original_max_position`` positions;
+    the softmax scale takes ``mscale(mscale_all_dim) ** 2`` and cos/sin
+    ``mscale(mscale) / mscale(mscale_all_dim)``, with ``mscale(m) = 0.1 *
+    m * ln(factor) + 1``."""
+
+    factor: float = 40.0
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class PortModelConfig(ModelConfig):
+    """A ``ModelConfig`` with the options of the port's own configurations."""
+
+    yarn: YaRN | None = None  # None: plain rope at rope_theta
+    norm_topk_prob: bool = True  # False: top-k weights are the raw softmax probabilities
+    routed_scaling_factor: float = 1.0  # multiplies the routed experts' weights
+    moe_dropless: bool = False  # every assignment reaches its expert (no capacity)
+
+
+_OPTIONS = {f.name: f.default for f in dataclasses.fields(PortModelConfig)
+            if f.name not in {g.name for g in dataclasses.fields(ModelConfig)}}
+
+
+def option(cfg: ModelConfig, name: str):
+    """``cfg``'s value of a ``PortModelConfig`` option, its default for a
+    plain ``ModelConfig``."""
+    return getattr(cfg, name, _OPTIONS[name])

@@ -1,4 +1,4 @@
-"""Profiler spans inside the event engine's step.
+"""Profiler spans inside the event engine's step and the LM's layers.
 
 Spans exist only while a torch profiler runs (``torch.profiler.profile``):
 :func:`span` then opens a ``torch.profiler.record_function``, which puts the
@@ -24,6 +24,29 @@ operations launched while it was open, per engine step, under the name its
   admission and link arbitration (``queue_ms_per_step``);
 * ``repro_torch.neuron``: ``neuron_step`` in ``EventEngine.step``, the
   AdExp/DPI update (``neuron_ms_per_step``).
+
+In the language models, read by ``perfbench/drivers/lm_prefill.py`` per
+prefill batch:
+
+* ``repro_torch.mla``: ``models/mla.py`` ``mla_layer``, every MLA layer's
+  projections, rope, attention and output projection
+  (``mla_ms_per_prefill``);
+* ``repro_torch.moe``: ``backbone.Block``'s MoE FFN, the shared experts
+  included, on every dispatch path;
+* ``repro_torch.moe.dispatch``: inside it, ``models/moe.py``
+  ``moe_local`` / ``moe_dropless``'s router, top-k, ``dispatch_slots``,
+  gathers and scatters, and the combine (``moe_dispatch_ms_per_prefill``);
+* ``repro_torch.moe.experts``: inside it, the routed experts' gated FFN
+  (``expert_ffn_ms_per_prefill``, ``expert_ffn_roofline``).
+
+The MoE's counters are not spans: each period's assignments per expert
+(``moe_load_periods`` ``[n_periods, E]``; DeepSeek-V2-Lite's period is one
+MoE layer) and, dropless, each MoE layer's assignments dropped (0 by
+construction) and its tokens' expert choices (``moe_dropped`` ``[n_moe]``,
+``moe_choices``) come back in the forward's ``aux``
+(``Model.prefill(..., return_aux=True)``), on the device, for the caller's
+one wait (``expert_load_max_over_mean`` and ``correct``'s
+``dropped_assignments``).
 
 The profiler mirrors each span onto the device's timeline under its name;
 :func:`device_ops` leaves those ranges out of a trace's device operations.

@@ -6,8 +6,9 @@ The port of ``repro.launch.serve``; the default architecture is
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
 On the GPU (the default device), the full deepseek-moe-16b, rwkv6-3b or
-zamba2-2.7b (every arch of ``repro_torch.configs.ARCHS`` serves; the full
-deepseek-v3-671b does not fit one card):
+zamba2-2.7b (every arch of ``repro_torch.configs.ARCHS`` and ``PORT_ARCHS``
+serves, deepseek-v2-lite too; the full deepseek-v3-671b does not fit one
+card):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-moe-16b --batch 8 \
       --prompt-len 512 --max-new 32 --max-len 544

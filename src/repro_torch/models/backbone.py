@@ -18,7 +18,10 @@ Without caches, each period may run under activation checkpointing
 (``cfg.remat``), as ``repro``'s scan body runs under ``jax.checkpoint``.
 A MoE block dispatches with ``moe_local`` (``moe_impl="local"``) or, with
 ``moe_impl="sharded"`` and a ``mesh``, with the expert-parallel
-``moe_block_sharded`` (``repro``'s ``apply_block`` chooses the same way).
+``moe_block_sharded`` (``repro``'s ``apply_block`` chooses the same way); a
+config with the ``moe_dropless`` option (``configs.base.PortModelConfig``)
+dispatches with ``moe_dropless``, on one device only. The MoE FFN, shared
+experts included, runs inside the profiler span ``repro_torch.moe``.
 
 :func:`block_spec_tree` and :meth:`Stack.spec` give ``repro``'s tree of
 logical axes for the stack's parameters: ``periods/b{i}`` once per period
@@ -32,8 +35,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import BlockSpec, ModelConfig
+from repro_torch.configs.base import BlockSpec, ModelConfig, option
 from repro_torch.core import cost_hook
+from repro_torch.core.tracing import span
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
@@ -46,13 +50,16 @@ __all__ = ["Block", "Stack", "block_spec_tree", "check_moe_impl", "init_block_ca
 MOE_IMPLS = ("local", "sharded")
 
 
-def check_moe_impl(moe_impl: str, mesh) -> None:
-    """Raise ``ValueError`` for an unknown ``moe_impl``, or ``"sharded"``
-    without a mesh to shard the experts over."""
+def check_moe_impl(moe_impl: str, mesh, cfg: ModelConfig | None = None) -> None:
+    """Raise ``ValueError`` for an unknown ``moe_impl``, ``"sharded"``
+    without a mesh to shard the experts over, or ``"sharded"`` for a
+    dropless config (the expert-parallel exchange has fixed capacities)."""
     if moe_impl not in MOE_IMPLS:
         raise ValueError(f"moe_impl={moe_impl!r}; have {MOE_IMPLS}")
     if moe_impl == "sharded" and mesh is None:
         raise ValueError('moe_impl="sharded" needs a mesh (distributed.mesh.make_mesh)')
+    if moe_impl == "sharded" and cfg is not None and option(cfg, "moe_dropless"):
+        raise ValueError(f'{cfg.name} dispatches dropless: moe_impl="sharded" has capacities')
 
 
 def block_spec_tree(spec: BlockSpec, cfg: ModelConfig, cross: bool = False) -> dict:
@@ -106,7 +113,7 @@ class Block(nn.Module):
     def __init__(self, spec: BlockSpec, cfg: ModelConfig, dtype, device, gen: torch.Generator,
                  cross: bool = False, moe_impl: str = "local", mesh=None):
         super().__init__()
-        check_moe_impl(moe_impl, mesh)
+        check_moe_impl(moe_impl, mesh, cfg)
         self.spec = spec
         self.cfg = cfg
         self.moe_impl = moe_impl
@@ -141,8 +148,9 @@ class Block(nn.Module):
     def forward(self, x, positions, cache: dict | None, enc_out=None, sequential: bool = False,
                 use_kernel: bool = False):
         """(x, new cache or {}, aux). ``aux`` holds ``moe_load`` [E] for a MoE
-        block. ``sequential`` reaches Mamba2 and RWKV-6 blocks (their
-        sequential oracles), ``use_kernel`` RWKV-6 blocks only."""
+        block, and for a dropless one ``moe_dropped`` (a scalar) and
+        ``moe_choices`` [B * S, k]. ``sequential`` reaches Mamba2 and RWKV-6
+        blocks (their sequential oracles), ``use_kernel`` RWKV-6 blocks only."""
         spec, cfg = self.spec, self.cfg
         aux = {}
         h = self.pre_norm(x)
@@ -172,19 +180,31 @@ class Block(nn.Module):
             if spec.ffn == "dense":
                 out2 = mlp(self.ffn, h2)
             else:
-                if self.moe_impl == "sharded":
-                    out2, moe_aux = moe_mod.moe_block_sharded(self.ffn, h2, cfg, self.mesh)
-                else:
-                    b, s, d = h2.shape
-                    y, moe_aux = moe_mod.moe_local(self.ffn, h2.reshape(b * s, d), cfg)
-                    out2 = y.reshape(b, s, d)
-                aux["moe_load"] = moe_aux["load"]
-                if cfg.n_shared_experts:
-                    out2 = out2 + mlp(self.ffn_shared, h2)
+                with span("repro_torch.moe"):
+                    out2 = self._moe(h2, aux)
             if cfg.post_block_norm:
                 out2 = self.ffn_post_norm(out2)
             x = x + out2
         return x, ({} if new_cache is None else new_cache), aux
+
+    def _moe(self, h2, aux: dict):
+        """The MoE FFN of ``h2 [B, S, D]``, shared experts included; its
+        counters go into ``aux``."""
+        cfg = self.cfg
+        if self.moe_impl == "sharded":
+            out2, moe_aux = moe_mod.moe_block_sharded(self.ffn, h2, cfg, self.mesh)
+        else:
+            b, s, d = h2.shape
+            dispatch = moe_mod.moe_dropless if option(cfg, "moe_dropless") else moe_mod.moe_local
+            y, moe_aux = dispatch(self.ffn, h2.reshape(b * s, d), cfg)
+            out2 = y.reshape(b, s, d)
+        aux["moe_load"] = moe_aux["load"]
+        if "dropped" in moe_aux:
+            aux["moe_dropped"] = moe_aux["dropped"]
+            aux["moe_choices"] = moe_aux["choices"]
+        if cfg.n_shared_experts:
+            out2 = out2 + mlp(self.ffn_shared, h2)
+        return out2
 
 
 class Stack(nn.Module):
@@ -252,7 +272,9 @@ class Stack(nn.Module):
         """``repro``'s ``Stack.apply``: (x, new caches or None, aux). ``aux``
         holds, when the stack has MoE blocks, ``moe_load`` [E] summed over
         every layer and ``moe_load_periods`` [n_periods, E], each period's
-        MoE blocks summed.
+        MoE blocks summed; when they dispatch dropless, also each MoE
+        layer's ``moe_dropped`` [n_moe_layers] and ``moe_choices``
+        [n_moe_layers, B * S, k], in order.
 
         With no caches and gradients on, each period runs under
         ``torch.utils.checkpoint`` when ``cfg.remat`` is not ``"none"``:
@@ -265,6 +287,8 @@ class Stack(nn.Module):
         new_caches = [] if caches is not None else None
         total = None  # every layer's MoE load
         period_loads: list[torch.Tensor | None] = []
+        # a dropless MoE layer's counters, in order of the layers
+        per_layer = {"moe_dropped": [], "moe_choices": []}
 
         def run(x, lo: int, hi: int, enc_out=enc_out):
             """Layers ``lo`` to ``hi - 1``: (x, their MoE loads summed or None)."""
@@ -276,6 +300,9 @@ class Stack(nn.Module):
                     new_caches.append(nc)
                 if "moe_load" in block_aux:
                     load = block_aux["moe_load"] if load is None else load + block_aux["moe_load"]
+                for key, got in per_layer.items():
+                    if key in block_aux:
+                        got.append(block_aux[key])
             return x, load
 
         def run_period(x, lo: int, hi: int, enc_out=enc_out):
@@ -318,4 +345,7 @@ class Stack(nn.Module):
             aux["moe_load"] = total
         if any(load is not None for load in period_loads):
             aux["moe_load_periods"] = torch.stack(period_loads)
+        for key, got in per_layer.items():
+            if got:
+                aux[key] = torch.stack(got)
         return x, new_caches, aux

@@ -15,13 +15,15 @@ parameters' shapes and dtypes and draws nothing: no generator is needed.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
 __all__ = [
     "DTYPES", "MLP", "Embedding", "RMSNorm", "apply_rope", "dt", "embed", "embedding_spec", "gelu",
     "matmul", "mlp", "mlp_spec", "normal_param", "rmsnorm", "rmsnorm_spec", "rope_freqs",
-    "sigmoid", "silu", "softcap", "unembed",
+    "sigmoid", "silu", "softcap", "unembed", "yarn_correction_range", "yarn_mscale",
 ]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -120,18 +122,55 @@ class RMSNorm(nn.Module):
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
-                            / head_dim))
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature ``0.1 * mscale * ln(factor) + 1`` (1 for
+    ``factor <= 1``)."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+def yarn_correction_range(head_dim: int, theta: float, yarn) -> tuple[int, int]:
+    """The rotary pair indices between which YaRN ramps from extrapolation
+    to interpolation: the dims that turn ``beta_fast`` and ``beta_slow``
+    times in ``original_max_position`` positions, floored and ceiled."""
+
+    def dim(rotations):
+        return (head_dim * math.log(yarn.original_max_position / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+
+    return max(math.floor(dim(yarn.beta_fast)), 0), min(math.ceil(dim(yarn.beta_slow)),
+                                                        head_dim - 1)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None, yarn=None) -> torch.Tensor:
+    """The ``head_dim / 2`` inverse frequencies; with ``yarn``
+    (``configs.base.YaRN``) YaRN's blend of the extrapolated ones and the
+    ones interpolated by ``yarn.factor``, float32 as DeepSeek-V2 computes it."""
+    powers = theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                       / head_dim)
+    if yarn is None:
+        return 1.0 / powers
+    lo, hi = yarn_correction_range(head_dim, theta, yarn)
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device) - lo)
+            / ((hi - lo) if hi > lo else 0.001)).clamp(0, 1)
+    extrapolate = 1.0 - ramp
+    return 1.0 / (yarn.factor * powers) * (1 - extrapolate) + 1.0 / powers * extrapolate
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               yarn=None) -> torch.Tensor:
     """x: [B, S, H, D]; positions: [B, S] integers. Rotates pairs (split-half:
-    element i with element i + D/2), in float32, back in ``x``'s dtype."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)  # [D/2]
+    element i with element i + D/2), in float32, back in ``x``'s dtype. With
+    ``yarn``, at YaRN's frequencies, cos and sin scaled by its
+    ``mscale / mscale_all_dim`` temperatures' ratio."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device, yarn)  # [D/2]
     angles = positions[..., None].float() * freqs  # [B, S, D/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
+    if yarn is not None:
+        gain = yarn_mscale(yarn.factor, yarn.mscale) / yarn_mscale(yarn.factor,
+                                                                    yarn.mscale_all_dim)
+        if gain != 1.0:
+            cos, sin = cos * gain, sin * gain
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 

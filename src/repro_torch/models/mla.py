@@ -19,6 +19,11 @@ given), with a per-slot absolute position (-1 when unwritten) for the mask.
 With a cache, a prefill attends within the current chunk only
 (``positions`` against ``positions``), as ``repro``'s does.
 
+With YaRN (``configs.base.YaRN``, a ``PortModelConfig`` option; DeepSeek-V2)
+both paths rotate at YaRN's frequencies and multiply the softmax scale by
+``yarn_mscale(factor, mscale_all_dim) ** 2``. The layer runs inside the
+profiler span ``repro_torch.mla`` (``core/tracing.py``).
+
 ``repro``'s sharding hints (``mla_spec``, ``constrain``) pin layouts on a
 TPU mesh and mean nothing on one card, so the port has none.
 """
@@ -28,8 +33,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.configs.base import option
+from repro_torch.core.tracing import span
 from repro_torch.models.attention import NEG_INF, _out_proj, attention_core, project_heads
-from repro_torch.models.layers import RMSNorm, apply_rope, matmul, normal_param, rmsnorm_spec
+from repro_torch.models.layers import (
+    RMSNorm, apply_rope, matmul, normal_param, rmsnorm_spec, yarn_mscale,
+)
 
 __all__ = ["MLA", "init_mla_cache", "mla_layer", "mla_spec"]
 
@@ -105,12 +114,22 @@ def _project_q(params: MLA, x, cfg):
 def mla_layer(params: MLA, x, positions, cfg, cache: dict | None = None):
     """x: [B, S, E], positions: [B, S]. Returns (output [B, S, E] in ``x``'s
     dtype, the cache updated in place, or None)."""
+    with span("repro_torch.mla"):
+        return _mla_layer(params, x, positions, cfg, cache)
+
+
+def _mla_layer(params: MLA, x, positions, cfg, cache: dict | None):
     scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    yarn = option(cfg, "yarn")
+    if yarn is not None and yarn.mscale_all_dim:
+        mscale = yarn_mscale(yarn.factor, yarn.mscale_all_dim)
+        scale = scale * mscale * mscale
     q_nope, q_rope = _project_q(params, x, cfg)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta, yarn)
 
     c_kv = params.kv_norm(matmul(x, params.w_dkv))
-    k_rope = apply_rope(matmul(x, params.w_kr)[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    k_rope = apply_rope(matmul(x, params.w_kr)[:, :, None, :], positions, cfg.rope_theta,
+                        yarn)[:, :, 0]
 
     if cache is not None:
         # only the last L tokens can live in the ring, so write the tail (its

@@ -6,6 +6,7 @@ a ``Model`` (an ``nn.Module`` holding its parameters) with
   forward(tokens, positions, caches, batch) -> (h, caches, aux)
   loss(batch)                              -> (scalar, aux)   [differentiable]
   prefill(tokens, caches, batch)           -> (logits [B, 1, V], caches)
+  prefill(..., return_aux=True)            -> (logits, caches, aux)
   decode_step(tokens, pos, caches)         -> (logits [B, 1, V], caches)
   init_caches(batch, max_len)              -> {"stack": [per-layer dict], "enc_out"?}
   param_specs()                            -> {parameter name: logical axes}
@@ -274,10 +275,16 @@ class Model(nn.Module):
         return caches
 
     def prefill(self, tokens: torch.Tensor, caches: dict, batch: dict | None = None,
-                sequential: bool = False):
+                sequential: bool = False, return_aux: bool = False):
+        """(logits [B, 1, V] of the last position, caches); with
+        ``return_aux``, the forward's ``aux`` third: the MoE counters
+        (``moe_load``, ``moe_load_periods`` and, dropless,
+        ``moe_dropped`` and ``moe_choices``;
+        ``backbone.Stack.forward``), on the device."""
         pos = torch.arange(tokens.shape[1], device=tokens.device).expand(tokens.shape)
-        h, caches, _ = self.forward(tokens, pos, caches, batch, sequential)
-        return self._unembed(h[:, -1:]), caches
+        h, caches, aux = self.forward(tokens, pos, caches, batch, sequential)
+        logits = self._unembed(h[:, -1:])
+        return (logits, caches, aux) if return_aux else (logits, caches)
 
     def decode_step(self, tokens: torch.Tensor, pos: torch.Tensor, caches: dict):
         """tokens: [B, 1]; pos: [B, 1] absolute positions."""

@@ -10,6 +10,10 @@ dropped.
   * :func:`moe_reference`: every expert computed densely for every token
     (the oracle, small sizes only);
   * :func:`moe_local`: the two-stage dispatch on one device;
+  * :func:`moe_dropless`: the same dispatch with no capacity (a
+    ``PortModelConfig`` with ``moe_dropless``; DeepSeek-V2-Lite): every
+    assignment reaches its expert, the rows sorted by expert and run as one
+    grouped GEMM per projection (:func:`grouped_experts_ffn`);
   * :func:`moe_block_sharded` / :func:`moe_sharded`: expert parallelism over
     a :class:`~repro_torch.distributed.mesh.DeviceMesh`. An expert shard is
     the paper's cluster and the expert id within it the tag: stage 1 is an
@@ -22,7 +26,15 @@ dropped.
 Routers: softmax top-k (deepseek-moe-16b) and sigmoid + bias aux-free
 (deepseek-v3). The router and its bias are float32 whatever the parameter
 dtype. Ties in the top-k go to the lower expert id, as ``jax.lax.top_k``
-breaks them.
+breaks them. The top-k weights are renormalised over the chosen experts
+unless the config's ``norm_topk_prob`` option is false (DeepSeek-V2: the raw
+softmax probabilities), then times ``routed_scaling_factor``.
+
+Profiler spans (``core/tracing.py``): :func:`moe_local` and
+:func:`moe_dropless` open ``repro_torch.moe.dispatch`` around the router,
+the top-k, ``dispatch_slots``, the gathers and scatters and the combine,
+and ``repro_torch.moe.experts`` around the routed experts' FFN; the block
+opens ``repro_torch.moe`` around both and the shared experts.
 
 :func:`aux_loss` is ``repro``'s switch-style balancing loss (``Model.loss``
 computes its own load term inline, as ``repro``'s does).
@@ -36,13 +48,16 @@ from types import SimpleNamespace
 import torch
 from torch import nn
 
+from repro_torch.configs.base import option
+from repro_torch.core.tracing import span
 from repro_torch.core.two_stage import dispatch_slots
 from repro_torch.distributed import mesh as mesh_mod
 from repro_torch.models.layers import matmul, normal_param, sigmoid, silu
 
 __all__ = [
     "EXPERT_PARAMS", "MoE", "aux_loss", "ep_axes_for", "expert_capacity", "experts_ffn",
-    "moe_block_sharded", "moe_local", "moe_reference", "moe_sharded", "moe_spec", "route",
+    "grouped_experts_ffn", "moe_block_sharded", "moe_dropless", "moe_local", "moe_reference",
+    "moe_sharded", "moe_spec", "route",
 ]
 
 EXPERT_PARAMS = ("wi_gate", "wi_up", "wo")  # [E, ...]: cut over the EP axes
@@ -89,7 +104,9 @@ def route(params: MoE, x: torch.Tensor, cfg):
     """x: [T, D] -> (top_idx [T, k] int64, top_w [T, k] float32, load [E] float32).
 
     Aux-free: experts chosen by sigmoid(score) + bias, weights the unbiased
-    sigmoid scores renormalised over the chosen experts."""
+    sigmoid scores. The weights are renormalised over the chosen experts
+    unless ``norm_topk_prob`` is false, then scaled by
+    ``routed_scaling_factor``."""
     scores = matmul(x.float(), params.router)
     if cfg.router_aux_free:
         affinity = sigmoid(scores)
@@ -98,7 +115,10 @@ def route(params: MoE, x: torch.Tensor, cfg):
     else:
         probs = torch.softmax(scores, dim=-1)
         top_w, top_idx = _top_k(probs, cfg.top_k)
-    top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-20)
+    if option(cfg, "norm_topk_prob"):
+        top_w = top_w / (top_w.sum(-1, keepdim=True) + 1e-20)
+    if option(cfg, "routed_scaling_factor") != 1.0:
+        top_w = top_w * option(cfg, "routed_scaling_factor")
     return top_idx, top_w, _counts(top_idx, cfg.n_experts)
 
 
@@ -149,22 +169,73 @@ def moe_local(params: MoE, x: torch.Tensor, cfg, capacity: int | None = None):
     t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = capacity or expert_capacity(cfg, t)
-    top_idx, top_w, load = route(params, x, cfg)
+    with span("repro_torch.moe.dispatch"):
+        top_idx, top_w, load = route(params, x, cfg)
+        flat_e = top_idx.reshape(-1)  # [T*k]: the emitted tag stream
+        slot, keep = dispatch_slots(flat_e, e, cap)
+        token_of = torch.arange(t, device=x.device).repeat_interleave(k)
+        # dropped assignments go to a sentinel row past the buffers (repro's
+        # scatter to e * cap with mode="drop"); kept slots are distinct
+        buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+        buf.index_copy_(0, torch.where(keep, slot, e * cap).long(), x[token_of])
+    with span("repro_torch.moe.experts"):
+        out_buf = experts_ffn(params, buf[:-1].reshape(e, cap, d)).reshape(e * cap, d)
+    with span("repro_torch.moe.dispatch"):
+        gathered = out_buf[slot.clamp_min(0).long()] * keep[:, None].to(x.dtype)
+        return _rank_sum(gathered, top_w.to(x.dtype), t, k), {"load": load}
 
-    flat_e = top_idx.reshape(-1)  # [T*k]: the emitted tag stream
-    slot, keep = dispatch_slots(flat_e, e, cap)
-    token_of = torch.arange(t, device=x.device).repeat_interleave(k)
-    # dropped assignments go to a sentinel row past the buffers (repro's
-    # scatter to e * cap with mode="drop"); kept slots are distinct
-    buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_copy_(0, torch.where(keep, slot, e * cap).long(), x[token_of])
-    out_buf = experts_ffn(params, buf[:-1].reshape(e, cap, d)).reshape(e * cap, d)
-    gathered = out_buf[slot.clamp_min(0).long()] * keep[:, None].to(x.dtype)
-    terms = (gathered * top_w.reshape(-1)[:, None].to(x.dtype)).reshape(t, k, d)
+
+def _rank_sum(gathered: torch.Tensor, top_w: torch.Tensor, t: int, k: int) -> torch.Tensor:
+    """Each token's ``k`` expert outputs ``gathered [T*k, D]`` (token-major)
+    times their weights ``top_w [T, k]``, summed in order of their rank."""
+    terms = (gathered * top_w.reshape(-1)[:, None]).reshape(t, k, -1)
     y = terms[:, 0]
     for j in range(1, k):
         y = y + terms[:, j]
-    return y, {"load": load}
+    return y
+
+
+def grouped_experts_ffn(params: MoE, rows: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """rows: [A, D] sorted by expert, expert ``i``'s rows from ``ends[i - 1]``
+    (0 for the first) to ``ends[i]`` (int64 [E], on the device) -> [A, D],
+    each row through its expert's gated FFN: each projection one
+    ``torch._grouped_mm`` over every expert, with the offsets on the device,
+    so nothing waits for the host."""
+    offs = ends.to(torch.int32)
+    gate = torch._grouped_mm(rows, params.wi_gate, offs=offs)
+    up = torch._grouped_mm(rows, params.wi_up, offs=offs)
+    return torch._grouped_mm(silu(gate) * up, params.wo, offs=offs)
+
+
+def moe_dropless(params: MoE, x: torch.Tensor, cfg):
+    """Dropless two-stage dispatch on one device. x: [T, D] -> ([T, D],
+    {"load": [E] float32, "dropped": float32 scalar, "choices": [T, k] int64}).
+
+    ``dispatch_slots`` ranks each assignment within its expert in stable
+    token order, as in :func:`moe_local`, with bins of ``T`` slots: a token
+    emits ``k`` distinct tags, so no bin overflows and ``dropped`` (counted
+    from the dispatch's own ``keep``) is 0. Each assignment's row in the
+    expert-sorted buffer is its expert's start (the load's exclusive
+    cumsum, on the device) plus its rank; :func:`grouped_experts_ffn` runs
+    the buffer, and each token sums its ``k`` weighted outputs in order of
+    rank. ``choices`` are the routed experts, best first."""
+    t, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    with span("repro_torch.moe.dispatch"):
+        top_idx, top_w, load = route(params, x, cfg)
+        flat_e = top_idx.reshape(-1)  # [T*k]: the emitted tag stream
+        slot, keep = dispatch_slots(flat_e, e, t)
+        ends = torch.cumsum(load.long(), 0)
+        row = (ends - load.long())[flat_e] + slot.long() - flat_e * t
+        token_of = torch.arange(t, device=x.device).repeat_interleave(k)
+        source = torch.empty_like(token_of).index_copy_(0, row, token_of)
+        rows = x[source]
+    with span("repro_torch.moe.experts"):
+        out = grouped_experts_ffn(params, rows, ends)
+    with span("repro_torch.moe.dispatch"):
+        y = _rank_sum(out[row], top_w.to(x.dtype), t, k)
+        dropped = (t * k - keep.sum()).float()
+    return y, {"load": load, "dropped": dropped, "choices": top_idx}
 
 
 def moe_reference(params: MoE, x: torch.Tensor, cfg):
@@ -239,11 +310,7 @@ def _combine(back: torch.Tensor, slot, keep, top_w, t: int, k: int) -> torch.Ten
     """Phase 5 of one cell: each token's ``k`` weighted results summed in
     rank order, as :func:`moe_local` sums them."""
     gathered = back[slot.clamp_min(0).long()] * keep[:, None].to(back.dtype)
-    terms = (gathered * top_w.reshape(-1)[:, None].to(back.dtype)).reshape(t, k, -1)
-    y = terms[:, 0]
-    for j in range(1, k):
-        y = y + terms[:, j]
-    return y
+    return _rank_sum(gathered, top_w.to(back.dtype), t, k)
 
 
 def moe_sharded(params: dict, x: dict, cfg, mesh, axis="model", owned: dict | None = None):
