@@ -28,7 +28,15 @@ Phases, each of which fails the run on any error:
      cells' B = 8192 (N = 1536), under the default and the Table-V neuron
      parameters, with and without an external current, must run one device
      operation a call, and is timed at B = 8192 beside the eager step and
-     its bound of 76 bytes a neuron;
+     its bound of 76 bytes a neuron. ``mla_attention`` (which replaces no
+     TPU kernel: the MLA prefill's causal attention) is held at
+     DeepSeek-V2-Lite's prefill shape (B = 4, S = 4096, H = 16, q and k 192
+     wide, v 128, bf16) against float32 ``attend_dense`` on the same inputs
+     (allclose(rtol=2**-7, atol=2**-7): bf16 probabilities and output), must
+     run one device operation a call, and is timed beside the plain
+     ``attention_core`` (``attend_chunked``), its bf16 bound and the library
+     yardstick ``scaled_dot_product_attention``, with its registers, spills
+     and blocks per SM;
   3. the serving path: the offline-Hebbian calibration run, then a pool of
      32 slots serving 64 poker-DVS sessions (seed 7, 16 events per step)
      once per backend (fused, cuda, reference, and the fabric with its
@@ -160,11 +168,13 @@ Phases, each of which fails the run on any error:
      bfloat16 logit;
   6. the LM remainder, with the launch counts set to 0 just before it and
      read just after (no Pallas kernel lies on this path: repro computes
-     MLA, the SSD scan and the shared block in plain jnp, so every count
-     must stay 0); bfloat16 weights from seed 7, each model freed before
-     the next. 6a: deepseek-v3-671b at full width (d 7168, MLA with 128
-     heads, q_lora 1536, kv_lora 512, 256 routed experts top-8 + 1 shared,
-     aux-free router, vocab 129280, MTP built), cut to its 3 dense MLA
+     MLA, the SSD scan and the shared block in plain jnp; the port's bf16
+     MLA prefill launches ``mla_attention`` once a layer, a whole multiple
+     of 6a's layers, and every other count must stay 0); bfloat16 weights
+     from seed 7, each model freed before the next. 6a: deepseek-v3-671b
+     at full width (d 7168, MLA with 128 heads, q_lora 1536, kv_lora 512,
+     256 routed experts top-8 + 1 shared, aux-free router, vocab 129280,
+     MTP built), cut to its 3 dense MLA
      layers + 1 of 58 MoE periods (15.1 B parameters), serves 8 prompts of
      512 tokens + 32 greedy tokens, timed and profiled as 5a, with the MLA
      ring's bytes per token and layer and the dropped share at capacity
@@ -247,11 +257,12 @@ Phases, each of which fails the run on any error:
      ``build/chip_smoke/chip_smoke_dryrun.json``.
 
 Prints a ``{"kernels": [...]}`` JSON line (``launches`` from the serving
-and LM paths, ``launches_compiler_phase`` from phase 3b,
-``launches_faults_phase`` from phase 3c, ``launches_multimodel_phase`` from
-phase 3d, ``launches_multidevice_phase`` from phase 3e,
+and LM paths, for ``mla_attention`` phase 6a's bf16 deepseek-v3,
+``launches_compiler_phase`` from phase 3b, ``launches_faults_phase`` from
+phase 3c, ``launches_multimodel_phase`` from phase 3d,
+``launches_multidevice_phase`` from phase 3e,
 ``launches_attention_moe_phase`` from phase 5 (0),
-``launches_lm_remainder_phase`` from phase 6 (0),
+``launches_lm_remainder_phase`` from phase 6 (``mla_attention`` only),
 ``launches_train_phase`` from phase 7 (0),
 ``launches_expert_parallel_phase`` from phase 8 (0),
 ``launches_dryrun_phase`` from phase 9 (``rwkv6_chunk`` only),
@@ -329,6 +340,7 @@ from repro_torch.kernels.cam_match import ops as cam_ops  # noqa: E402
 from repro_torch.kernels.cam_match.ref import cam_counts  # noqa: E402
 from repro_torch.kernels.fabric_deliver import ops as fabric_ops  # noqa: E402
 from repro_torch.kernels.fused_deliver import ops as fused_ops  # noqa: E402
+from repro_torch.kernels.mla_attention import ops as mla_ops  # noqa: E402
 from repro_torch.kernels.neuron_step import ops as neuron_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops  # noqa: E402
 from repro_torch.models import attention as attn_ops  # noqa: E402
@@ -473,6 +485,7 @@ def phase_kernels(dev: torch.device) -> dict[str, dict]:
             f"{v['plain_ms'] * 1e3:.2f} us, bound {v['bound_ms'] * 1e3:.3f} us ({v['bound_by']})")
     out["neuron_step"] = neuron_kernel_entry(dev, t.n_neurons, gen)
     out["rwkv6_chunk"] = rwkv_kernel_entry(dev)
+    out["mla_attention"] = mla_kernel_entry(dev)
     return out
 
 
@@ -1029,6 +1042,86 @@ def rwkv_kernel_entry(dev: torch.device) -> dict:
     return entry
 
 
+MLA_B, MLA_S, MLA_H = 4, 4096, 16  # DeepSeek-V2-Lite's prefill cell: prompts, tokens, heads
+MLA_TOL = 2.0**-7  # bf16 output and probabilities against float32 (tests/test_torch_cuda.py)
+
+
+def mla_kernel_entry(dev: torch.device) -> dict:
+    """``mla_attention`` at DeepSeek-V2-Lite's prefill cell (B = 4, S =
+    4096, H = 16; q, k 192 wide, v 128, bf16; positions 0..S-1 in stride-0
+    rows, as the model passes them; the model's scale with YaRN's mscale
+    squared) against float32 ``attend_dense`` on the same inputs, within
+    allclose(rtol=2**-7, atol=2**-7); one call one device operation; timed
+    beside the plain ``attention_core`` the model runs elsewhere (blocks of
+    1024 through ``attend_chunked``, float32 inside), its bound (the causal
+    pairs' operations at the bf16 tensor-core peak, or q, k, v and o once at
+    HBM speed) and ``scaled_dot_product_attention`` on [B, H, S, D] copies,
+    the library yardstick (the port never calls it)."""
+    cfg = get_config("deepseek-v2-lite")
+    dqk, dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    m = lm_layers.yarn_mscale(cfg.yarn.factor, cfg.yarn.mscale_all_dim)
+    scale = dqk**-0.5 * m * m
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q, k = (torch.randn((MLA_B, MLA_S, MLA_H, dqk), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn((MLA_B, MLA_S, MLA_H, dv), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.arange(MLA_S, device=dev).expand(MLA_B, MLA_S)
+    call = lambda: mla_ops.mla_attention(q, k, v, pos, scale)  # noqa: E731
+    got = call()
+    with torch.inference_mode():
+        want = attn_ops.attend_dense(q.float(), k.float(), v.float(), pos, pos, causal=True,
+                                     scale=scale)
+    err = float((got.float() - want).abs().max())
+    if not torch.allclose(got.float(), want, rtol=MLA_TOL, atol=MLA_TOL):
+        raise AssertionError(f"mla_attention: max_abs_err {err} against float32 attend_dense")
+    del want
+    _free()
+    ops = _device_ops_per_call(call)
+    if len(ops) != 1 or "mla_attention_kernel" not in ops[0]:
+        raise AssertionError(f"one mla_attention call ran {len(ops)} device operations: {ops}")
+    info = mla_ops.kernel_info()
+    pairs = MLA_B * MLA_S * (MLA_S + 1) // 2
+    flops = 2 * MLA_H * pairs * (dqk + dv)
+    n_bytes = _nbytes(q, k, v, got)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_PEAK_FLOPS * 1e3
+    bound_ms, bound_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    plain = lambda: attn_ops.attention_core(  # noqa: E731
+        q, k, v, pos, pos, causal=True, window=None, scale=scale, softcap=None)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qh, kh, vh, is_causal=True, scale=scale)
+    entry = {
+        "name": "mla_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/mla_attention/csrc/mla_attention.cu",
+        "replaces": "none: repro's MLA prefill runs attend_chunked as jnp under jit "
+                    "(src/repro/models/attention.py:101)",
+        "max_abs_err": err,
+        "ms": time_ms(call, repeats=20, inner=10),
+        "plain_ms": time_ms(plain, repeats=3, inner=1),
+        "device_ms": device_ms(call, "mla_attention_kernel", calls=20),
+        "device_ops_per_call": len(ops),
+        **{f"kernel_{key}": x for key, x in info.items()},
+        "bytes": n_bytes,
+        "flops": flops,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": time_ms(sdpa, repeats=20, inner=10),
+        "library_device_ms": device_ms(sdpa, None, calls=20),
+        "shape": f"q, k [{MLA_B},{MLA_S},{MLA_H},{dqk}] bf16, v [{MLA_B},{MLA_S},{MLA_H},{dv}] "
+                 f"bf16, positions [{MLA_B},{MLA_S}] int64",
+    }
+    log(f"mla_attention: {info['registers']} registers, {info['local_bytes']} local (spill) bytes "
+        f"per thread, {info['shared_bytes']} shared bytes and {info['blocks_per_sm']} blocks per SM")
+    log(f"mla_attention at B = {MLA_B}, S = {MLA_S}, H = {MLA_H}: within allclose(rtol={MLA_TOL}, "
+        f"atol={MLA_TOL}) of float32 attend_dense, max_abs_err {err:.3g}; {entry['ms']:.4f} ms/call "
+        f"(kernel on the device {entry['device_ms']} ms, {bound_ms / entry['device_ms']:.1%} of its "
+        f"bound), plain attention_core {entry['plain_ms']:.2f} ms, scaled_dot_product_attention "
+        f"{entry['library_ms']:.4f} ms (device {entry['library_device_ms']}), bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {flops} flops, {n_bytes} bytes)")
+    return entry
+
+
 # ---------------------------------------------------------------------------
 # phase 3: serving
 # ---------------------------------------------------------------------------
@@ -1060,6 +1153,7 @@ KERNEL_WRAPPERS = {
     "fabric_deliver": fabric_ops.fabric_deliver,
     "rwkv6_chunk": rwkv_ops.rwkv6_chunk,
     "neuron_step": neuron_ops.neuron_step,
+    "mla_attention": mla_ops.mla_attention,
 }
 # serving legs: (label, backend, fabric_options, the delivery kernel it must
 # launch once per step; every leg launches neuron_step once per step too)
@@ -3797,14 +3891,18 @@ def phase6_zamba2(dev) -> dict:
 def phase_lm_remainder(dev) -> dict[str, int]:
     """Phase 6: the launch counts set to 0 just before and read just after.
     No Pallas kernel lies on this path (repro computes MLA, the SSD scan and
-    the shared block in plain jnp), so it must launch none of the port's
-    kernels."""
+    the shared block in plain jnp); the port's bf16 MLA prefill launches
+    ``mla_attention`` once a layer (6a's float32 run keeps the plain
+    attention), so that count is a whole, non-zero multiple of 6a's layers
+    and every other count is 0."""
     t0 = time.perf_counter()
     _reset_counts()
     out = {"deepseek-v3-671b": phase6_deepseek_v3(dev), "zamba2-2.7b": phase6_zamba2(dev)}
     counts = _read_counts()
-    if any(counts.values()):
-        raise AssertionError(f"LM remainder phase launched {counts}")
+    mla_layers = out["deepseek-v3-671b"]["layers"]
+    if (any(v for k, v in counts.items() if k != "mla_attention")
+            or counts["mla_attention"] == 0 or counts["mla_attention"] % mla_layers):
+        raise AssertionError(f"LM remainder phase launched {counts} ({mla_layers} MLA layers)")
     out["launches"] = counts
     out["seconds"] = time.perf_counter() - t0
     OUT_DIR.mkdir(parents=True, exist_ok=True)
@@ -4854,6 +4952,7 @@ def main() -> None:
     launches.update(phase_lm(dev))
     attention_moe_launches = phase_attention_moe(dev)
     lm_remainder_launches = phase_lm_remainder(dev)
+    launches["mla_attention"] = lm_remainder_launches["mla_attention"]
     train_launches = phase_train(dev)
     expert_parallel_launches = phase_expert_parallel(dev)
     dryrun_launches = phase_dryrun(dev, smi)

@@ -3,7 +3,10 @@
 The port of ``repro.models.mla``. Two numerically equivalent paths:
 
 * prefill (or no cache): decompress the latent ``c_kv`` into per-head K/V
-  and run the shared :func:`attention_core` (causal, no window);
+  and run the shared :func:`attention_core` (causal, no window), or on the
+  card, for bf16 tensors at the full head sizes (192 for q and k, 128 for
+  v) that need no gradient, the hand-written kernel
+  ``kernels/mla_attention`` that computes the same (:func:`takes_kernel`);
 * decode ("absorbed"): the cache stores only ``c_kv [B, L, kv_lora]`` and
   ``k_rope [B, L, rope]``, and the up-projections are absorbed into the
   query and output sides:
@@ -35,12 +38,13 @@ from torch import nn
 
 from repro_torch.configs.base import option
 from repro_torch.core.tracing import span
+from repro_torch.kernels.mla_attention import ops as mla_ops
 from repro_torch.models.attention import NEG_INF, _out_proj, attention_core, project_heads
 from repro_torch.models.layers import (
     RMSNorm, apply_rope, matmul, normal_param, rmsnorm_spec, yarn_mscale,
 )
 
-__all__ = ["MLA", "init_mla_cache", "mla_layer", "mla_spec"]
+__all__ = ["MLA", "init_mla_cache", "mla_layer", "mla_spec", "takes_kernel"]
 
 
 def mla_spec(cfg) -> dict:
@@ -111,6 +115,18 @@ def _project_q(params: MLA, x, cfg):
     return q[..., : cfg.qk_nope_dim], q[..., cfg.qk_nope_dim :]
 
 
+def takes_kernel(q, k, v, positions) -> bool:
+    """Whether the prefill's attention over ``q``, ``k`` [B, S, H, dq] and
+    ``v`` [B, S, H, dv] runs the CUDA kernel: bf16 CUDA tensors at its head
+    sizes (192 and 128, every full-width MLA configuration) that need no
+    gradient, at int64 positions. Everything else (the CPU, float32 on the
+    card, the smoke sizes, training) keeps :func:`attention_core`."""
+    return (q.is_cuda and all(t.dtype == torch.bfloat16 for t in (q, k, v))
+            and q.shape[-1] == mla_ops.QK_DIM and v.shape[-1] == mla_ops.V_DIM
+            and positions.dtype == torch.int64
+            and not (torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))))
+
+
 def mla_layer(params: MLA, x, positions, cfg, cache: dict | None = None):
     """x: [B, S, E], positions: [B, S]. Returns (output [B, S, E] in ``x``'s
     dtype, the cache updated in place, or None)."""
@@ -150,8 +166,11 @@ def _mla_layer(params: MLA, x, positions, cfg, cache: dict | None):
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:3], cfg.qk_rope_dim)],
                       dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
-        out = attention_core(q, k, v, positions, positions, causal=True, window=None, scale=scale,
-                             softcap=None)
+        if takes_kernel(q, k, v, positions):
+            out = mla_ops.mla_attention(q, k, v, positions, scale)
+        else:
+            out = attention_core(q, k, v, positions, positions, causal=True, window=None,
+                                 scale=scale, softcap=None)
     else:
         # absorbed decode against the latent cache
         q_eff = _einsum("bshd,rhd->bshr", q_nope, params.w_uk)

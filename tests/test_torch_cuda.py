@@ -13,7 +13,9 @@ differ from the plain version's. TF32 is off (the plain stage 2 contracts a
 one-hot with a float32 matmul). ``rwkv6_chunk`` is held to
 allclose(rtol=1e-4, atol=1e-5), the tolerance repro's own kernel test holds
 its Pallas kernel to (tests/test_kernels.py): float32 sums of up to 128
-terms with exponentials, taken in another order.
+terms with exponentials, taken in another order. ``mla_attention`` is held
+to float32 ``attend_dense`` on the same bf16 inputs within
+allclose(rtol=2**-7, atol=2**-7) (its tests give the reason).
 """
 
 import dataclasses
@@ -33,9 +35,10 @@ from repro_torch.data.pipeline import DvsStreamConfig, DvsStreamSource
 from repro_torch.kernels.cam_match import ops as cam_ops
 from repro_torch.kernels.fabric_deliver import ops as fabric_ops
 from repro_torch.kernels.fused_deliver import ops as fused_ops
+from repro_torch.kernels.mla_attention import ops as mla_ops
 from repro_torch.kernels.rwkv6 import ops as rwkv_ops
 from repro_torch.models import attention as at
-from repro_torch.models import moe, ssm
+from repro_torch.models import layers, mla, moe, ssm
 from repro_torch.models.model import build_model
 from repro_torch.serve.aer import AerServeConfig, AerSessionPool, DvsSession, build_poker_engine
 from repro_torch.serve.engine import Engine, ServeConfig
@@ -889,7 +892,8 @@ def test_cuda_smoke_arch_serves_as_on_the_cpu(cuda, arch):
         extras = {"prefix_embeddings": rng.normal(
             size=(2, cfg.n_prefix_embeddings, cfg.d_model)).astype(np.float32)}
     before = {fn: fn.launches for fn in (cam_ops.cam_match, fused_ops.fused_deliver,
-                                         fabric_ops.fabric_deliver, rwkv_ops.rwkv6_chunk)}
+                                         fabric_ops.fabric_deliver, rwkv_ops.rwkv6_chunk,
+                                         mla_ops.mla_attention)}
     with torch.inference_mode():
         got, _ = model.prefill(torch.as_tensor(toks, device=cuda), model.init_caches(2, 24), extras)
         want, _ = cpu_model.prefill(torch.as_tensor(toks), cpu_model.init_caches(2, 24), extras)
@@ -920,3 +924,129 @@ def test_cuda_ssd_chunked_core_matches_sequential_and_the_cpu(cuda):
     assert y_chk.is_cuda and y_chk.shape == (b, s, h, p)
     for got, want in ((y_chk, y_seq), (h_chk, h_seq), (y_chk.cpu(), y_cpu), (h_chk.cpu(), h_cpu)):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# the MLA prefill's causal attention kernel
+# ---------------------------------------------------------------------------
+# (B, S, H, positions, scale factor): positions from 0, from an offset (from
+# -5 the first five queries see no valid key and read 0), or a permutation
+# of 0..S-1 (the mask follows the positions' values, not the rows); the
+# factor multiplies DeepSeek-V2-Lite's scale, 8 for sharply peaked rows
+MLA_CASES = {
+    "one token": (1, 1, 16, 0, 1.0),
+    "S = 63": (2, 63, 16, 0, 1.0),
+    "S = 128 from 5, 128 heads": (1, 128, 128, 5, 1.0),
+    "S = 1000 from -5": (2, 1000, 16, -5, 1.0),
+    "S = 1000, 128 heads": (1, 1000, 128, 0, 1.0),
+    "S = 1000 peaked": (1, 1000, 16, 0, 8.0),
+    "S = 300 permuted": (2, 300, 16, "perm", 1.0),
+    "the cell's shape": (4, 4096, 16, 0, 1.0),
+}
+
+
+def _mla_scale(factor: float = 1.0) -> float:
+    cfg = get_config("deepseek-v2-lite")
+    m = layers.yarn_mscale(cfg.yarn.factor, cfg.yarn.mscale_all_dim)
+    return factor * (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5 * m * m
+
+
+def _mla_inputs(dev, b, s, h, start, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k = (torch.randn((b, s, h, mla_ops.QK_DIM), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn((b, s, h, mla_ops.V_DIM), generator=gen, device=dev).to(torch.bfloat16)
+    if start == "perm":
+        pos = torch.stack([torch.randperm(s, generator=gen, device=dev) for _ in range(b)])
+    else:
+        pos = (torch.arange(s, device=dev) + start).expand(b, s)  # the model's stride-0 rows
+    return q, k, v, pos
+
+
+@pytest.mark.parametrize("case", sorted(MLA_CASES))
+def test_cuda_mla_attention_matches_float32_dense(cuda, case):
+    """The kernel against float32 ``attend_dense`` on the same bf16 q, k, v
+    (scores, softmax and the product with v all float32 there):
+    allclose(rtol=2**-7, atol=2**-7). The output is rounded to bf16 (a
+    relative error up to 2**-8 of values up to about 5), and the kernel
+    rounds the probabilities to bf16 before the product with v (each term
+    within 2**-8 of its own size, about 2**-8 * mean |v| in all), as
+    ``attend_dense`` itself does in bf16; the sums run in another order.
+    A row with no valid key is exactly 0."""
+    b, s, h, start, factor = MLA_CASES[case]
+    q, k, v, pos = _mla_inputs(cuda, b, s, h, start)
+    scale = _mla_scale(factor)
+    launches = mla_ops.mla_attention.launches
+    got = mla_ops.mla_attention(q, k, v, pos, scale)
+    torch.cuda.synchronize()
+    assert mla_ops.mla_attention.launches == launches + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s, h, mla_ops.V_DIM)
+    want = at.attend_dense(q.float(), k.float(), v.float(), pos, pos, causal=True, scale=scale)
+    torch.testing.assert_close(got.float(), want, rtol=2**-7, atol=2**-7)
+    empty = pos < 0
+    if empty.any():
+        assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+
+
+def test_cuda_mla_attention_raises_on_what_it_does_not_take(cuda):
+    q, k, v, pos = _mla_inputs(cuda, 1, 70, 2, 0)
+    scale = _mla_scale()
+    with pytest.raises(ValueError, match="dtype"):
+        mla_ops.mla_attention(q.float(), k, v, pos, scale)
+    with pytest.raises(ValueError, match="shape"):
+        mla_ops.mla_attention(q[..., :128].contiguous(), k, v, pos, scale)
+    with pytest.raises(ValueError, match="shape"):
+        mla_ops.mla_attention(q, k, k, pos, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        mla_ops.mla_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, pos, scale)
+    with pytest.raises(ValueError, match="positions"):
+        mla_ops.mla_attention(q, k, v, pos.int(), scale)
+    with pytest.raises(ValueError, match="CUDA"):
+        mla_ops.mla_attention(q.cpu(), k.cpu(), v.cpu(), pos.cpu(), scale)
+    with pytest.raises(RuntimeError, match="backward"):
+        mla_ops.mla_attention(q.requires_grad_(), k, v, pos, scale)
+
+
+def test_cuda_mla_prefill_launches_the_kernel_once_per_layer(cuda, monkeypatch):
+    """DeepSeek-V2-Lite cut to 2 layers at full width (192 / 128) in bf16:
+    a prefill launches the kernel once per layer, and its last logits lie
+    within 0.08 (rms, relative) of the same prefill on ``attention_core``:
+    the benchmark cell's limit on bf16 logits against its float32 reference
+    (bf16 prefills read 0.027-0.048 there). The two bf16 paths differ by the
+    kernel's bf16 probabilities and the order of its sums, carried through
+    a router whose top-6 choices flip (measured 0.030). The smoke
+    configuration's head sizes (16 + 8 / 16) take ``attention_core`` on the
+    card, in bf16 too."""
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite"), n_periods=1)
+    model = build_model(cfg, device=cuda, seed=0)
+    toks = torch.randint(0, cfg.vocab, (2, 300), generator=torch.Generator().manual_seed(1))
+    toks = toks.to(cuda)
+    with torch.inference_mode():
+        launches = mla_ops.mla_attention.launches
+        got, _ = model.prefill(toks, model.init_caches(2, 300))
+        assert mla_ops.mla_attention.launches == launches + cfg.n_layers == launches + 2
+        monkeypatch.setattr(mla, "takes_kernel", lambda *args: False)
+        want, _ = model.prefill(toks, model.init_caches(2, 300))
+        monkeypatch.undo()
+        assert mla_ops.mla_attention.launches == launches + 2
+    got, want = got.float(), want.float()
+    gap = float((got - want).pow(2).mean().sqrt() / want.pow(2).mean().sqrt())
+    assert gap < 0.08, gap
+    del model
+    smoke = get_config("deepseek-v2-lite", smoke=True)
+    small = build_model(smoke, device=cuda, seed=0)
+    with torch.inference_mode():
+        launches = mla_ops.mla_attention.launches
+        logits, _ = small.prefill(toks[:, :40] % smoke.vocab, small.init_caches(2, 40))
+    assert torch.isfinite(logits.float()).all()
+    assert mla_ops.mla_attention.launches == launches
+
+
+def test_cuda_mla_attention_fits_one_block_per_sm(cuda):
+    """One block of three warpgroups an SM: at most 65,536 / 384 registers
+    a thread (168 in steps of 8), its ring within the 227 KB a block may
+    hold. Its spills are logged by chip_smoke and kept in PERF.md."""
+    info = mla_ops.kernel_info()
+    assert info["blocks_per_sm"] == 1, info
+    assert info["registers"] <= 168, info
+    assert info["shared_bytes"] <= 227 * 1024, info

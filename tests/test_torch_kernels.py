@@ -101,7 +101,7 @@ def test_plain_fused_deliver_matches_pallas_interpret(b, integer):
 
 def test_kernel_sources_found_and_flags_target_hopper():
     assert set(_build.sources()) == {"cam_match", "fused_deliver", "fabric_deliver", "neuron_step",
-                                     "rwkv6_chunk"}
+                                     "rwkv6_chunk", "mla_attention"}
     flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
     assert _build.build_dir().name == "kernels" and _build.build_dir().parent.name == "build"
